@@ -1,0 +1,443 @@
+"""Configuration system for dhd_tpu_torch.
+
+A copy of ``dhd_tpu/config.py`` (the port imports nothing of the JAX
+package): frozen dataclasses with the reference's three named presets
+(``dhd_s``, ``dhd_m``, ``dhd_l``) plus tiny variants for tests, exposed
+through :func:`get_config`.  Fields that only steer the JAX package
+(``cv_method``, ``attn_method``, ``ln_method``, ``backbone_remat``) are
+kept so the two packages read the same presets.  In the port,
+``pool_method="xla"`` selects the plain PyTorch pooling; any other value
+pools with the CUDA kernel on the GPU (and its plain version on the CPU
+when a plan is given).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple
+
+# Occ3D-nuScenes class frequencies used for class-balanced CE weights
+# (reference: projects/mmdet3d_plugin/models/dense_heads/occ_head.py:11-30).
+NUSC_CLASS_FREQUENCIES = (
+    944004, 1897170, 152386, 2391677, 16957802, 724139, 189027, 2074468,
+    413451, 2384460, 5916653, 175883646, 4275424, 51393615, 61411620,
+    105975596, 116424404, 1892500630,
+)
+
+OCC_CLASS_NAMES = (
+    "others", "barrier", "bicycle", "bus", "car", "construction_vehicle",
+    "motorcycle", "pedestrian", "traffic_cone", "trailer", "truck",
+    "driveable_surface", "other_flat", "sidewalk", "terrain", "manmade",
+    "vegetation", "free",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridConfig:
+    """A 1-D regular grid: [lower, upper, interval] per axis.
+
+    Mirrors the reference grid_config dicts (DHD-S.py:31-36).
+    """
+    lower: float
+    upper: float
+    interval: float
+
+    @property
+    def size(self) -> int:
+        return int(round((self.upper - self.lower) / self.interval))
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewTransformConfig:
+    """MGHS view transformer geometry.
+
+    Reference: projects/mmdet3d_plugin/models/necks/lss_heightmap.py:13-134 and
+    projects/configs/DHD/DHD-S.py:31-105.
+    """
+    input_size: Tuple[int, int] = (256, 704)     # (H, W)
+    downsample: int = 16
+    # Frustum depth bins used to build the frustum (DHD-S: 44 bins @ 1.0 m).
+    depth: GridConfig = GridConfig(1.0, 45.0, 1.0)
+    # Depth binning used for the downsampled GT depth / fg-mask.  The reference
+    # mutates grid_config['depth'] to 0.5 m bins inside view_transform
+    # (lss_heightmap.py:425-431), so at loss time the bins are always these:
+    gt_depth: GridConfig = GridConfig(1.0, 45.0, 0.5)
+    # BEV xy grid (shared by all pooling passes).
+    x: GridConfig = GridConfig(-40.0, 40.0, 0.4)
+    y: GridConfig = GridConfig(-40.0, 40.0, 0.4)
+    # z-collapsed main grid: one 6.4 m voxel over [-1, 5.4).
+    z_full: GridConfig = GridConfig(-1.0, 5.4, 6.4)
+    # Fine z grid: 16 voxels of 0.4 m; split into 3 height bands (slabs of
+    # 4 + 4 + 8 layers) by mask_range (DHD-S.py:77-99).
+    z_fine: GridConfig = GridConfig(-1.0, 5.4, 0.4)
+    mask_range: Tuple[float, float, float, float] = (-1.0, 0.6, 2.2, 5.4)
+    # Height distribution bins (65 bins of 0.1 m at -1.0..5.4, DHD-S.py:67-74).
+    height_min: float = -1.0
+    height_interval: float = 0.1
+    num_height_bins: int = 65
+    in_channels: int = 256
+    out_channels: int = 64          # numC_Trans
+    collapse_z: bool = True
+    sid: bool = False
+
+    @property
+    def D(self) -> int:
+        return self.depth.size
+
+    @property
+    def feat_size(self) -> Tuple[int, int]:
+        return (self.input_size[0] // self.downsample,
+                self.input_size[1] // self.downsample)
+
+    @property
+    def slab_sizes(self) -> Tuple[int, int, int]:
+        lo, t1, t2, hi = self.mask_range
+        dz = self.z_fine.interval
+        return (int(round((t1 - lo) / dz)), int(round((t2 - t1) / dz)),
+                int(round((hi - t2) / dz)))
+
+    def height_bin_centers(self) -> Sequence[float]:
+        return tuple(self.height_min + i * self.height_interval
+                     for i in range(self.num_height_bins))
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthNetConfig:
+    """DepthNet / HeightNet topology flags.
+
+    Reference: projects/mmdet3d_plugin/models/model_utils/depthnet.py:172-246.
+    """
+    use_dcn: bool = True
+    use_aspp: bool = True
+    aspp_mid_channels: int = -1
+    # ASPP dropout rate (reference depthnet.py:115 hardcodes 0.5).  The
+    # micro dryrun presets set 0.0: dropout masks are keyed by batch
+    # POSITION, so the multichip dryrun's sample-permutation invariance
+    # check is only meaningful on deterministic math.
+    aspp_dropout: float = 0.5
+    stereo: bool = False
+    bias: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    weight_ce: float = 10.0
+    weight_geo: float = 0.2
+    weight_sem: float = 0.2
+    loss_height_weight: float = 0.1
+    loss_depth_weight: float = 3.0
+    class_balance: bool = True
+    num_classes: int = 18
+    free_class: int = 17
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """AdamW schedule (DHD-S.py:261-270)."""
+    lr: float = 2e-4
+    weight_decay: float = 1e-2
+    grad_clip_norm: float = 5.0
+    warmup_iters: int = 200
+    warmup_ratio: float = 0.001
+    max_epochs: int = 24
+    step_epochs: Tuple[int, ...] = (24,)
+    step_gamma: float = 0.1
+    ema_decay: float = 0.9990
+    ema_init_updates: int = 10560
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Full model assembly config (one of DHD-S / DHD-M / DHD-L)."""
+    name: str = "dhd_s"
+    temporal: bool = False           # DHD_stereo-style temporal+stereo model
+    num_adj_frames: int = 0          # history frames fused into the BEV
+    stereo: bool = False
+    # image backbone: 'resnet50' or 'swin_base'
+    backbone: str = "resnet50"
+    backbone_out_indices: Tuple[int, ...] = (2, 3)
+    # Swin topology (defaults = Swin-B as in DHD-L.py:45-67)
+    swin_embed_dims: int = 128
+    swin_depths: Tuple[int, ...] = (2, 2, 18, 2)
+    swin_num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    swin_window: int = 12
+    img_neck: str = "custom_fpn"     # 'custom_fpn' | 'fpn_lss'
+    img_neck_in_channels: Tuple[int, ...] = (1024, 2048)
+    img_neck_out_channels: int = 256
+    # view transformer
+    vt: ViewTransformConfig = ViewTransformConfig()
+    # MGHS depth-net flavour: 'conv1x1' (DHD-S) or 'full' (MGHS_Depth/Stereo)
+    depth_net: str = "conv1x1"
+    depthnet_cfg: DepthNetConfig = DepthNetConfig()
+    heightnet_cfg: DepthNetConfig = DepthNetConfig()
+    # BEV encoder
+    bev_encoder: str = "custom_resnet"   # 'custom_resnet' | 'unet'
+    bev_encoder_channels: Tuple[int, ...] = (128, 256, 512)
+    bev_neck_out_channels: int = 256
+    bev_unet_out: int = 512              # UNet BEV encoder output (DHD-M)
+    # voxel (slab) encoders: UNet output channels per band
+    voxel_encoder_out: Tuple[int, int, int] = (64, 128, 64)
+    # first rung of every UNet's channel ladder (base..base*16).  The
+    # reference hardcodes 64 (models/backbones/unet.py); tiny/micro test
+    # presets shrink it — at 64 the three slab UNets alone hold ~1.1 GB of
+    # fp32 params, which swamps any small-shape CPU run.
+    unet_base: int = 64
+    # pre-process nets (DHD-M/L only)
+    pre_process: bool = False
+    # fusion + head
+    sfa_in_channels: int = 512
+    sfa_out_channels: int = 256
+    head_in_dim: int = 256
+    head_out_dim: int = 256
+    head_Dz: int = 16
+    num_classes: int = 18
+    use_predicter: bool = True
+    loss: LossConfig = LossConfig()
+    optim: OptimConfig = OptimConfig()
+    num_cams: int = 6
+    align_after_view_transformation: bool = False
+    # rematerialize backbone blocks in backward (reference with_cp=True,
+    # DHD-S.py:52)
+    backbone_remat: bool = True
+    # voxel pooling backend: 'auto' = Pallas kernel at inference on TPU,
+    # XLA segment_sum otherwise (training backward is a pure gather under
+    # XLA); 'xla' / 'pallas' force one
+    pool_method: str = "auto"
+    # stereo cost-volume backend: 'auto' = MXU Pallas kernel on TPU, XLA
+    # gather elsewhere.  cv_win_rows is the Pallas warp's source-row
+    # window: 2 suffices for rigs with no in-plane inter-frame rotation;
+    # each extra row tolerates one more row of tap drift across a
+    # 128-wide tile (~0.45 deg of roll).  Validate a real rig once via
+    # ops.cost_volume_pallas.validate_cv_plan — cv_method='xla' is exact
+    # for any geometry.
+    cv_method: str = "auto"
+    cv_win_rows: int = 2
+    # Swin window-attention backend for inference: 'auto' = fused Pallas
+    # kernel on TPU (ops/window_attention.py), XLA einsum elsewhere and
+    # for training; 'xla' / 'pallas' force one
+    attn_method: str = "auto"
+    # Swin LayerNorm backend for inference: 'auto' = one-pass fused Pallas
+    # kernel on TPU (ops/layer_norm.py; XLA's stats+apply two-fusion
+    # lowering measured ~15x off the HBM roofline at DHD-L stage-2
+    # shapes), flax LN elsewhere and for training; 'xla' / 'pallas' force
+    ln_method: str = "auto"
+
+    @property
+    def num_frames(self) -> int:
+        """Total frames: key + adjacent + extra stereo ref frame."""
+        return 1 + self.num_adj_frames + (1 if self.stereo else 0)
+
+
+def dhd_s() -> ModelConfig:
+    """DHD-S: R50, 256x704, single frame (DHD-S.py)."""
+    return ModelConfig()
+
+
+def dhd_m() -> ModelConfig:
+    """DHD-M: R50, 256x704, 1 history frame + stereo, UNet BEV encoder
+    (DHD-M.py diff vs DHD-S: stereo DepthNet w/o DCN + aspp_mid 96 + bias 5,
+    UNet(128->512)+Identity BEV encoder, voxel UNets 512/512/1024 ->
+    128/256/128, SFA 1024->512, head in_dim 512, loss_depth_weight 0.05)."""
+    return ModelConfig(
+        name="dhd_m",
+        temporal=True, num_adj_frames=1, stereo=True,
+        backbone_out_indices=(0, 2, 3),
+        depth_net="full",
+        depthnet_cfg=DepthNetConfig(stereo=True, use_dcn=False,
+                                    aspp_mid_channels=96, bias=5.0),
+        heightnet_cfg=DepthNetConfig(),
+        vt=dataclasses.replace(
+            ViewTransformConfig(),
+            depth=GridConfig(1.0, 45.0, 0.5),
+            collapse_z=False),
+        bev_encoder="unet",
+        bev_unet_out=512,
+        pre_process=True,
+        voxel_encoder_out=(128, 256, 128),
+        sfa_in_channels=1024, sfa_out_channels=512,
+        head_in_dim=512,
+        loss=dataclasses.replace(LossConfig(), loss_depth_weight=0.05),
+    )
+
+
+def dhd_l() -> ModelConfig:
+    """DHD-L: Swin-B, 512x1408, 1 history frame + stereo (DHD-L.py:40-170)."""
+    return ModelConfig(
+        name="dhd_l",
+        temporal=True, num_adj_frames=1, stereo=True,
+        backbone="swin_base",
+        img_neck="fpn_lss",
+        img_neck_in_channels=(512, 1024),
+        img_neck_out_channels=512,
+        depth_net="full",
+        depthnet_cfg=DepthNetConfig(stereo=True, use_dcn=False,
+                                    aspp_mid_channels=96, bias=5.0),
+        heightnet_cfg=DepthNetConfig(use_dcn=False, aspp_mid_channels=96),
+        vt=dataclasses.replace(
+            ViewTransformConfig(),
+            input_size=(512, 1408),
+            depth=GridConfig(1.0, 45.0, 0.5),
+            in_channels=512,
+            collapse_z=False),
+        bev_encoder="custom_resnet",
+        bev_encoder_channels=(128, 256, 512),
+        pre_process=True,
+        voxel_encoder_out=(64, 128, 64),
+        sfa_in_channels=512, sfa_out_channels=256,
+        loss=dataclasses.replace(LossConfig(), loss_depth_weight=0.05),
+    )
+
+
+def dhd_tiny_stereo() -> ModelConfig:
+    """Shrunken DHD-M-style temporal+stereo model for tests."""
+    base = dhd_tiny()
+    vt = dataclasses.replace(
+        base.vt,
+        depth=GridConfig(1.0, 12.0, 0.5),   # D=22, 0.5 m bins like M/L
+        collapse_z=False)
+    return dataclasses.replace(
+        base,
+        name="dhd_tiny_stereo",
+        temporal=True, num_adj_frames=1, stereo=True,
+        backbone_out_indices=(0, 2, 3),
+        depth_net="full",
+        depthnet_cfg=DepthNetConfig(stereo=True, use_dcn=False,
+                                    aspp_mid_channels=16, bias=5.0),
+        heightnet_cfg=DepthNetConfig(use_dcn=False, aspp_mid_channels=16),
+        vt=vt,
+        pre_process=True,
+        voxel_encoder_out=(16, 32, 16),
+        unet_base=8,
+        sfa_in_channels=192, sfa_out_channels=64,
+        loss=dataclasses.replace(LossConfig(), loss_depth_weight=0.05),
+    )
+
+
+def dhd_micro_stereo() -> ModelConfig:
+    """Minimal temporal+stereo model for multi-device dry runs.
+
+    Exercises the full DHD-M/L protocol (3 frames, stereo cost volume,
+    stop-gradient rule, pre-process nets, slab UNets, SFA) at the smallest
+    shapes the architecture supports."""
+    vt = ViewTransformConfig(
+        input_size=(32, 96),                 # fH,fW = 2,6; stereo 8x24
+        depth=GridConfig(1.0, 9.0, 0.5),     # D=16, 0.5 m bins like M/L
+        gt_depth=GridConfig(1.0, 9.0, 0.5),
+        x=GridConfig(-6.4, 6.4, 0.4),        # 32x32 BEV grid
+        y=GridConfig(-6.4, 6.4, 0.4),
+        in_channels=16,
+        out_channels=8,
+    )
+    return ModelConfig(
+        name="dhd_micro_stereo",
+        temporal=True, num_adj_frames=1, stereo=True,
+        backbone="tiny_cnn",
+        backbone_out_indices=(0, 2, 3),
+        img_neck_in_channels=(64, 128),
+        img_neck_out_channels=16,
+        depth_net="full",
+        # aspp_dropout=0: see DepthNetConfig — keeps the dryrun's
+        # sample-permutation invariance check deterministic
+        depthnet_cfg=DepthNetConfig(stereo=True, use_dcn=False,
+                                    aspp_mid_channels=8, bias=5.0,
+                                    aspp_dropout=0.0),
+        heightnet_cfg=DepthNetConfig(use_dcn=False, aspp_mid_channels=8,
+                                     aspp_dropout=0.0),
+        vt=vt,
+        pre_process=True,
+        bev_encoder_channels=(16, 32, 64),
+        bev_neck_out_channels=32,
+        voxel_encoder_out=(8, 16, 8),
+        unet_base=4,
+        sfa_in_channels=64, sfa_out_channels=32,
+        head_in_dim=32, head_out_dim=32,
+        num_cams=2,
+        loss=dataclasses.replace(LossConfig(), loss_depth_weight=0.05),
+    )
+
+
+def dhd_micro() -> ModelConfig:
+    """Minimal SINGLE-FRAME model (the DHD-S family protocol: MGHS depth+
+    height transform, no temporal loop) for multi-device dry runs, at the
+    sizes of dhd_micro_stereo."""
+    vt = ViewTransformConfig(
+        input_size=(32, 96),                 # fH,fW = 2,6
+        depth=GridConfig(1.0, 9.0, 1.0),     # D=8, 1 m bins like S
+        gt_depth=GridConfig(1.0, 9.0, 0.5),
+        x=GridConfig(-6.4, 6.4, 0.4),        # 32x32 BEV grid
+        y=GridConfig(-6.4, 6.4, 0.4),
+        in_channels=16,
+        out_channels=8,
+    )
+    return ModelConfig(
+        name="dhd_micro",
+        backbone="tiny_cnn",
+        img_neck_in_channels=(64, 128),
+        img_neck_out_channels=16,
+        depth_net="full",
+        # aspp_dropout=0: see DepthNetConfig — keeps the dryrun's
+        # sample-permutation invariance check deterministic
+        depthnet_cfg=DepthNetConfig(use_dcn=False, aspp_mid_channels=8,
+                                    aspp_dropout=0.0),
+        heightnet_cfg=DepthNetConfig(use_dcn=False, aspp_mid_channels=8,
+                                     aspp_dropout=0.0),
+        vt=vt,
+        bev_encoder_channels=(16, 32, 64),
+        bev_neck_out_channels=32,
+        voxel_encoder_out=(8, 16, 8),
+        unet_base=4,
+        sfa_in_channels=64, sfa_out_channels=32,
+        head_in_dim=32, head_out_dim=32,
+        num_cams=2,
+    )
+
+
+def dhd_tiny() -> ModelConfig:
+    """A shrunken DHD-S for fast tests: 64x176 input, 64x64x16 grid."""
+    vt = ViewTransformConfig(
+        input_size=(64, 176),
+        depth=GridConfig(1.0, 12.0, 1.0),
+        gt_depth=GridConfig(1.0, 12.0, 0.5),
+        x=GridConfig(-12.8, 12.8, 0.4),
+        y=GridConfig(-12.8, 12.8, 0.4),
+        in_channels=32,
+        out_channels=16,
+    )
+    return ModelConfig(
+        name="dhd_tiny",
+        vt=vt,
+        backbone="tiny_cnn",
+        img_neck_in_channels=(64, 128),
+        img_neck_out_channels=32,
+        heightnet_cfg=DepthNetConfig(use_dcn=False, use_aspp=True),
+        bev_encoder_channels=(32, 64, 128),
+        bev_neck_out_channels=64,
+        voxel_encoder_out=(16, 32, 16),
+        unet_base=8,
+        sfa_in_channels=128, sfa_out_channels=64,
+        head_in_dim=64, head_out_dim=64,
+    )
+
+
+_PRESETS = {
+    "dhd_s": dhd_s,
+    "dhd_m": dhd_m,
+    "dhd_l": dhd_l,
+    "dhd_tiny": dhd_tiny,
+    "dhd_tiny_stereo": dhd_tiny_stereo,
+    "dhd_micro": dhd_micro,
+    "dhd_micro_stereo": dhd_micro_stereo,
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return _PRESETS[name]()
+    except KeyError:
+        raise KeyError(f"unknown preset {name!r}; have {sorted(_PRESETS)}")
+
+
+def class_weights(num_classes: int = 18) -> Tuple[float, ...]:
+    """1/log(freq) class-balance weights (occ_head.py:74)."""
+    return tuple(1.0 / math.log(f + 0.001)
+                 for f in NUSC_CLASS_FREQUENCIES[:num_classes])

@@ -1,0 +1,300 @@
+"""DHD model assembly (single-frame DHD-S path): counterpart of
+``dhd_tpu/models/dhd.py``.
+
+  image encoder (ResNet50+FPN)  ->  depth-net (1x1) + HeightNet
+  -> fused MGHS voxel pooling   ->  BEV encoder || 3 slab UNets
+  -> SFA fusion                 ->  channel-to-height occupancy head
+
+Modules run in NCHW; the public functions keep the JAX package's layouts
+(images (B, N, H, W, 3) in, occupancy logits (B, Dx, Dy, Dz, n_cls) out).
+Module attributes follow the reference's state_dict key space
+(``img_backbone.*``, ``img_neck.*``, ``img_view_transformer.*``,
+``img_bev_encoder_{backbone,neck}.*``, ``img_voxel_encoder{0,1,2}.*``,
+``mix.*``, ``occ_head.*``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from dhd_tpu_torch.config import ModelConfig, ViewTransformConfig
+from dhd_tpu_torch.device import resolve_device
+from dhd_tpu_torch.geometry import (create_frustum, frustum_to_ego,
+                                    get_mlp_input)
+from dhd_tpu_torch.nn import (SFA, CustomFPN, CustomResNet, DeformConv,
+                              FPN_LSS, HeightNet, OccHead, ResNet50, TinyCNN,
+                              UNet)
+from dhd_tpu_torch.ops import (PoolIndices, PoolPlan, build_pool_plan,
+                               compute_pool_indices, mghs_pool,
+                               mghs_pool_cuda)
+
+GEOM_KEYS = ("sensor2keyego", "intrins", "post_rots", "post_trans", "bda")
+
+
+def band_masks_from_height(height_prob: torch.Tensor,
+                           vt: ViewTransformConfig) -> torch.Tensor:
+    """Per-pixel height-band gates from the height distribution.
+
+    argmax bin -> height in meters (bin centres) -> one of the 3 bands
+    [h_min, thr1), [thr1, thr2), [thr2, h_max) (lss_heightmap.py:528-564).
+    The top bin centre equals h_max and is in no band, as in the reference.
+
+    Args:
+      height_prob: (..., H) softmaxed height distribution.
+    Returns:
+      (..., 3) mask in height_prob.dtype.
+    """
+    centers = torch.tensor(vt.height_bin_centers(), dtype=torch.float32,
+                           device=height_prob.device)
+    hmap = centers[height_prob.argmax(dim=-1)]
+    lo, t1, t2, hi = vt.mask_range
+    return torch.stack([(hmap >= lo) & (hmap < t1),
+                        (hmap >= t1) & (hmap < t2),
+                        (hmap >= t2) & (hmap < hi)],
+                       dim=-1).to(height_prob.dtype)
+
+
+def collapse_z(x: torch.Tensor) -> torch.Tensor:
+    """(B, Dy, Dx, Dz, C) -> (B, Dy, Dx, Dz*C), z-major channel order,
+    matching torch.cat(x.unbind(dim=2), 1) on the reference's
+    (B, C, Dz, Dy, Dx) (lss_heightmap.py:297-299)."""
+    b, dy, dx, dz, c = x.shape
+    return x.reshape(b, dy, dx, dz * c)
+
+
+def _pool_indices(cfg: ModelConfig, geom: Dict[str, torch.Tensor]
+                  ) -> PoolIndices:
+    vt = cfg.vt
+    frustum = create_frustum(vt.depth, vt.input_size, vt.downsample, vt.sid,
+                             device=geom["bda"].device)
+    coords = frustum_to_ego(frustum, *(geom[k] for k in GEOM_KEYS))
+    return compute_pool_indices(coords, vt)
+
+
+def _as_tensor(x: Any, device: torch.device,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                           device=device, dtype=dtype)
+
+
+def build_batch_pool_plan(cfg: ModelConfig, batch: Dict[str, Any],
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> PoolPlan:
+    """The pooling plan of a fixed-geometry batch.
+
+    The serving counterpart of the reference's 'accelerate' mode
+    (tools/analysis_tools/benchmark.py:83-84): geometry depends only on
+    calibration and augmentation, so a fixed camera rig computes this once
+    and passes it as ``batch["pool_plan"]`` with every frame.
+    """
+    device = resolve_device(device)
+    geom = {k: _as_tensor(batch[k], device, torch.float32)
+            for k in GEOM_KEYS}
+    vt = cfg.vt
+    b, n = geom["sensor2keyego"].shape[:2]
+    fh, fw = vt.feat_size
+    return build_pool_plan(_pool_indices(cfg, geom), vt,
+                           (b, n, vt.D, fh, fw))
+
+
+class MGHSTransform(nn.Module):
+    """MGHS view transformer (lss_heightmap.py:13-490): the 1x1 depth net,
+    HeightNet, and the fused voxel pooling."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.depth_net != "conv1x1":
+            raise NotImplementedError("only the DHD-S 1x1 depth net is ported")
+        self.cfg = cfg
+        vt = cfg.vt
+        self.depth_net = nn.Conv2d(vt.in_channels, vt.D + vt.out_channels, 1)
+        self.height_net = HeightNet(vt.in_channels, vt.in_channels,
+                                    vt.num_height_bins, cfg.heightnet_cfg)
+
+    def forward(self, x: torch.Tensor, geom: Dict[str, torch.Tensor],
+                plan: Optional[PoolPlan] = None) -> Dict[str, torch.Tensor]:
+        """
+        Args:
+          x: (B, N, C_in, fH, fW) image features.
+          geom: sensor2keyego / intrins / post_rots / post_trans / bda.
+          plan: optional cached pooling plan.
+        Returns:
+          bev (B, Dy, Dx, C), vox (B, Dy, Dx, Dz, C) and the fp32 softmax
+          distributions depth (B, N, fH, fW, D), height (B, N, fH, fW, H).
+        """
+        vt = self.cfg.vt
+        b, n, c_in, fh, fw = x.shape
+        x = x.reshape(b * n, c_in, fh, fw)
+        mlp_input = get_mlp_input(*(geom[k] for k in GEOM_KEYS)
+                                  ).reshape(b * n, 27)
+        # one 1x1 conv emits depth logits + context features
+        # (lss_heightmap.py:62,482-485)
+        xd = self.depth_net(x).permute(0, 2, 3, 1)      # (BN, fH, fW, D+C)
+        depth = torch.softmax(xd[..., :vt.D].float(), dim=-1)
+        feat = xd[..., vt.D:vt.D + vt.out_channels].contiguous()
+        height_logit = self.height_net(x, mlp_input.to(x.dtype))
+        height = torch.softmax(height_logit.float(), dim=1).permute(0, 2, 3, 1)
+        band_mask = band_masks_from_height(height, vt).to(x.dtype)
+
+        px = (b, n, fh, fw)
+        feat = feat.reshape(px + (vt.out_channels,))
+        band_mask = band_mask.reshape(px + (3,))
+        use_kernel = self.cfg.pool_method != "xla" and (
+            plan is not None or x.is_cuda)
+        if use_kernel:
+            # the kernel path; without a cached plan, plan this frame
+            if plan is None:
+                plan = build_pool_plan(_pool_indices(self.cfg, geom), vt,
+                                       (b, n, vt.D, fh, fw))
+            bev, vox = mghs_pool_cuda(
+                depth.to(x.dtype).contiguous().reshape(px + (vt.D,)), feat,
+                band_mask, plan)
+        else:
+            depth_p = depth.reshape(px + (vt.D,)).permute(0, 1, 4, 2, 3)
+            bev, vox = mghs_pool(depth_p.to(x.dtype), feat, band_mask,
+                                 _pool_indices(self.cfg, geom), vt)
+        return {"bev": bev, "vox": vox,
+                "depth": depth.reshape(px + (vt.D,)),
+                "height": height.reshape(px + (vt.num_height_bins,))}
+
+
+def _normal_(w: torch.Tensor, fan_in: int, gain: float,
+             generator: torch.Generator) -> None:
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=generator)
+                * math.sqrt(gain / fan_in))
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights at the scales of the JAX package's flax
+    initialisers: LeCun-normal convs and dense layers (flax's default),
+    He-normal DCN kernels, zero biases, identity BatchNorm (running mean 0,
+    var 1).  The DCN offset convs stay zero, as the reference initialises
+    them.  (He-normal everywhere makes the BN-less random DHD-S chaotic:
+    one bf16 ulp in the pooled grid then moves ~1% of the argmaxes.)"""
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if name.endswith("conv_offset"):
+                continue
+            w = mod.weight
+            fan_in = (w.shape[0] * w[0, 0].numel()
+                      if isinstance(mod, nn.ConvTranspose2d)
+                      else w[0].numel())
+            _normal_(w, fan_in, 1.0, generator)
+            if mod.bias is not None:
+                with torch.no_grad():
+                    mod.bias.zero_()
+        elif isinstance(mod, DeformConv):
+            # flax counts the (9, Cg, G, Og) kernel's fan-in as 9*Cg*G
+            _normal_(mod.weight, mod.weight[0].numel() * mod.groups, 2.0,
+                     generator)
+        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            mod.reset_parameters()
+
+
+class DHDNet(nn.Module):
+    """Single-frame DHD (DHD-S) for inference.
+
+    ``DHDNet(cfg, dtype, device, generator)`` builds the model with seeded
+    random weights (load real ones with
+    :func:`dhd_tpu_torch.io.load_jax_variables` or ``load_state_dict``) in
+    eval mode on ``device`` (default: the GPU; raises if there is none).
+    """
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        vt = cfg.vt
+        # image encoder (the JAX ImageEncoder): backbone + neck
+        if cfg.backbone == "resnet50":
+            self.img_backbone = ResNet50(cfg.backbone_out_indices)
+        elif cfg.backbone == "tiny_cnn":
+            self.img_backbone = TinyCNN()
+        else:
+            raise NotImplementedError(cfg.backbone)
+        if cfg.img_neck != "custom_fpn":
+            raise NotImplementedError(cfg.img_neck)
+        self.img_neck = CustomFPN(self.img_backbone.out_channels,
+                                  cfg.img_neck_out_channels)
+        self.img_view_transformer = MGHSTransform(cfg)
+        # BEV encoder (the JAX BEVEncoder): CustomResNet + FPN_LSS
+        if cfg.bev_encoder != "custom_resnet":
+            raise NotImplementedError(cfg.bev_encoder)
+        ch = cfg.bev_encoder_channels
+        self.img_bev_encoder_backbone = CustomResNet(vt.out_channels, ch)
+        self.img_bev_encoder_neck = FPN_LSS(ch[-1] + ch[0],
+                                            cfg.bev_neck_out_channels)
+        for k, slab in enumerate(vt.slab_sizes):
+            self.add_module(f"img_voxel_encoder{k}",
+                            UNet(slab * vt.out_channels,
+                                 cfg.voxel_encoder_out[k], base=cfg.unet_base))
+        self.mix = SFA(cfg.sfa_in_channels, cfg.sfa_out_channels)
+        self.occ_head = OccHead(cfg.head_in_dim, cfg.head_out_dim,
+                                cfg.head_Dz, cfg.num_classes,
+                                cfg.use_predicter, return_flat=True)
+        init_weights(self, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+        self.eval()
+        self.to(device=device, dtype=dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.occ_head.final_conv.conv.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.occ_head.final_conv.conv.weight.dtype
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Inference forward pass.
+
+        Args:
+          batch: numpy arrays or tensors: imgs (B, N, H, W, 3) normalized
+            images; sensor2keyego (B, N, 4, 4); intrins, post_rots
+            (B, N, 3, 3); post_trans (B, N, 3); bda (B, 3, 3); optional
+            pool_plan from :func:`build_batch_pool_plan`.
+        Returns:
+          occ_logits (B, Dx, Dy, Dz, n_cls), occ_logits_flat
+          (B, Dx, Dy, Dz*n_cls), depth and height distributions; fp32.
+        """
+        cfg = self.cfg
+        dev, dt = self.device, self.dtype
+        imgs = _as_tensor(batch["imgs"], dev, dt)
+        b, n, h, w, _ = imgs.shape
+        x = imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w)
+        x = self.img_neck(self.img_backbone(x))
+        x = x.reshape((b, n) + x.shape[1:])
+
+        geom = {k: _as_tensor(batch[k], dev, torch.float32)
+                for k in GEOM_KEYS}
+        vt_out = self.img_view_transformer(x, geom, batch.get("pool_plan"))
+
+        bev = vt_out["bev"].permute(0, 3, 1, 2)
+        x_2d = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(bev))
+
+        s1, s2, _ = cfg.vt.slab_sizes
+        vox = vt_out["vox"]                    # (B, Dy, Dx, Dz, C) z-minor
+        slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
+                 vox[..., s1 + s2:, :])
+        x_3d = torch.cat([
+            getattr(self, f"img_voxel_encoder{k}")(
+                collapse_z(slab).permute(0, 3, 1, 2))
+            for k, slab in enumerate(slabs)], dim=1)
+
+        fused = self.mix(torch.cat([x_2d, x_3d], dim=1))
+        occ = self.occ_head(fused).float()     # packed (B, Dx, Dy, Dz*n_cls)
+        return {
+            "occ_logits": occ.reshape(occ.shape[:3]
+                                      + (cfg.head_Dz, cfg.num_classes)),
+            "occ_logits_flat": occ,
+            "depth": vt_out["depth"],
+            "height": vt_out["height"],
+        }
