@@ -7,19 +7,35 @@ Phases, one line each; any failure raises and exits non-zero:
 
 1. the card's name and power limit; build the CUDA kernels from
    ``dhd_tpu_torch/csrc`` (one nvcc per source, all started together);
-2. kernel vs plain: ``mghs_pool_cuda`` against its plain PyTorch version at
-   DHD-S shapes in bf16 (fp32 sums), every element within one bf16 ulp;
-   times by CUDA events, median of 30 launches each;
+2. kernel vs plain: ``mghs_pool_cuda`` (B1) against its plain PyTorch
+   version at DHD-S shapes in bf16 (fp32 sums), every element within one
+   bf16 ulp; times by CUDA events, median of 30 launches each;
 3. serving: DHD-S at full width (B=1, 6 cameras, 256x704) in bf16 with
    seeded random weights and a cached pool plan answers 5 frames; each
    kernel must launch once per frame; one frame is repeated with the plain
    pooling forced and must agree;
 4. small reference: dhd_tiny in fp32 on the GPU against the same weights on
-   the CPU (plain path), TF32 off.
+   the CPU (plain path), TF32 off;
+5. kernel vs plain: ``stereo_cost_volume_cuda`` (B3) against its plain
+   version at DHD-M shapes (6 cameras, 88 depth bins, 64x176, 256 bf16
+   channels after a ReLU) on a rig moving 0.5 m with a small yaw, bias 5:
+   softmaxed probabilities within atol 2e-5, rtol 1e-4;
+6. kernel vs plain: ``mghs_pool_cuda`` (B1) again at DHD-M shapes (the
+   streamed frame's plan, 88 depth bins), within one bf16 ulp;
+7. streaming serving: DHD-M at full width in bf16 with seeded random
+   weights and a cached pool plan, one bootstrap frame then 5 frames with
+   the ego 0.5 m further each; B1 and B3 must launch once per frame; one
+   frame is repeated from the same cache with the plain pooling and cost
+   volume forced and must agree; then one frame read by CUDA events, by
+   torch.profiler (with the cost-volume stage as a range) and by the sync
+   debug mode (the lines where the host waits for the device);
+8. small reference: dhd_micro_stereo in fp32, two streaming steps on the
+   GPU against the same weights on the CPU.
 
-Then one JSON line listing the kernels, the card's ``nvidia-smi`` name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits 1 and prints no result.
+Then one JSON line listing the kernels (B1's numbers at each shape under
+``shapes``), the card's ``nvidia-smi`` name and power limit, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+prints no result.
 """
 from __future__ import annotations
 
@@ -40,6 +56,10 @@ POOL_ULP_TOL = 1            # kernel vs plain: fp32 sum order only
 SERVE_REL_TOL = 2e-2        # bf16 kernel path vs bf16 plain path, of peak
 SERVE_ARGMAX_MIN = 0.999
 TINY_REL_TOL = 2e-4         # fp32 GPU vs fp32 CPU, of peak
+CV_ATOL, CV_RTOL = 2e-5, 1e-4   # B3 vs plain probabilities: the tolerance
+#                                 the TPU kernel held against XLA
+CV_FLOPS_VALID = 11         # per channel: 4 bilinear FMAs, sub, abs, add
+CV_FLOPS_OFF = 3            # off-image samples: sub, abs, add
 
 
 def check(ok: bool, msg: str) -> None:
@@ -83,17 +103,24 @@ def rel_to_peak(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) / max(1e-3, float(b.abs().max()))
 
 
-def phase_kernel(dev, kernels):
-    """B1 kernel vs its plain version at DHD-S geometry."""
+def phase_kernel(dev, kernels, preset="dhd_s"):
+    """B1 kernel vs its plain version at the geometry of ``preset``: DHD-S
+    (the single-frame plan, D=44) or DHD-M (the streamed frame's plan, as
+    the streaming step pools it, D=88)."""
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.data import synthetic_batch
-    from dhd_tpu_torch.models import build_batch_pool_plan
+    from dhd_tpu_torch.models import (build_batch_pool_plan,
+                                      build_stream_pool_plan)
     from dhd_tpu_torch.ops import mghs_pool_cuda, mghs_pool_plan_plain
 
-    cfg = get_config("dhd_s")
+    cfg = get_config(preset)
     vt = cfg.vt
-    rig = synthetic_batch(cfg, batch_size=1, seed=0, with_gt=False)
-    plan = build_batch_pool_plan(cfg, rig, device=dev)
+    if cfg.temporal:
+        plan = build_stream_pool_plan(cfg, stream_frames(cfg, 1)[0],
+                                      device=dev)
+    else:
+        rig = synthetic_batch(cfg, batch_size=1, seed=0, with_gt=False)
+        plan = build_batch_pool_plan(cfg, rig, device=dev)
     fh, fw = vt.feat_size
     px = (1, cfg.num_cams, fh, fw)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -141,24 +168,29 @@ def phase_kernel(dev, kernels):
               + 8 * n_valid + 4 * plan.starts.numel())
     flops = n_valid * c * 2 + n_gated * c      # multiply + bev add; vox add
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    kernels["mghs_pool_cuda"] = {
-        "name": "mghs_pool_cuda", "route": "cuda",
-        "source": "dhd_tpu_torch/csrc/mghs_pool.cu",
-        "replaces": "dhd_tpu/ops/pallas_pool.py:240",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    measured = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-    }
-    print(f"phase 2 ok: mghs_pool_cuda vs plain at DHD-S: "
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    # the top-level numbers are DHD-S's, each shape's are under "shapes";
+    # max_abs_err is the largest over the shapes
+    kern = kernels.setdefault("mghs_pool_cuda", dict(
+        {"name": "mghs_pool_cuda", "route": "cuda",
+         "source": "dhd_tpu_torch/csrc/mghs_pool.cu",
+         "replaces": "dhd_tpu/ops/pallas_pool.py:240", "launches": None},
+        **measured, library_ms=None, shapes={}))
+    kern["shapes"][preset] = measured
+    kern["max_abs_err"] = max(kern["max_abs_err"], err)
+    print(f"phase {2 if preset == 'dhd_s' else 6} ok: mghs_pool_cuda vs "
+          f"plain at {preset} (D={vt.D}, C={c}): "
           f"P={plan.dix_s.numel()} points ({n_valid} in grid, {n_gated} "
           f"gated on) -> vox "
           f"{tuple(vox_k.shape)}, bev {tuple(bev_k.shape)} bf16; max abs err "
           f"{err:.3e}, max {ulps} bf16 ulp (tol {POOL_ULP_TOL}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{kernels['mghs_pool_cuda']['bound_ms']:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB); points per non-empty pillar: mean "
-          f"{mean_pts:.1f}, max {busiest}", flush=True)
+          f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}, "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); points per "
+          f"non-empty pillar: mean {mean_pts:.1f}, max {busiest}", flush=True)
 
 
 def phase_serve(dev, kernels, card):
@@ -194,7 +226,8 @@ def phase_serve(dev, kernels, card):
         outs.append(out["occ_logits"])
     launches = mghs_pool_cuda.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    kernels["mghs_pool_cuda"]["launches"] = launches
+    kernels["mghs_pool_cuda"]["launches_by_path"] = {
+        "dhd_s_serve": launches}
     check(launches == 5, f"mghs_pool_cuda launched {launches} times, want 5")
     want = (1, cfg.vt.x.size, cfg.vt.y.size, cfg.head_Dz, cfg.num_classes)
     for occ in outs:
@@ -228,12 +261,15 @@ def phase_serve(dev, kernels, card):
         plain(frame)
         torch.cuda.synchronize()
         plain_ms.append(1e3 * (time.perf_counter() - t0))
-    stages = stage_ms(model, frames[1])
-    busy, top = device_busy_ms(model, frames[1])
+    stages = stage_ms(model, lambda: model(frames[1]))
+    busy, top, trace = device_busy_ms(lambda: model(frames[1]))
+    n_sync, sync_at = host_syncs(lambda: model(frames[1]))
     frame = statistics.median(frame_ms)
     print(f"phase 3 breakdown: plain-pooling path "
           f"{statistics.median(plain_ms):.2f} ms/frame median vs kernel path "
-          f"{frame:.2f}; stage device ms (CUDA events) "
+          f"{frame:.2f}; host syncs per frame {n_sync} "
+          f"({trace['frame']['sync_host_ms']:.2f} ms in synchronize calls) "
+          f"at {sync_at}; stage device ms (CUDA events) "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + (f"; device busy {busy:.2f} ms of {frame:.2f} ms/frame, idle "
              f"share {1 - busy / frame:.3f}; top kernels (ms) "
@@ -243,9 +279,11 @@ def phase_serve(dev, kernels, card):
     del model, plain
 
 
-def stage_ms(model, frame) -> dict:
-    """Device time of each top-level stage of one frame: CUDA events
-    recorded by forward hooks around every child module."""
+def stage_ms(model, run, extra=()) -> dict:
+    """Device time of each top-level stage of one frame (``run()``): CUDA
+    events recorded by forward hooks around every child module, and around
+    the model methods named in ``extra``.  A stage called more than once
+    sums its calls."""
     events: dict = {}
 
     def record(name):
@@ -253,34 +291,117 @@ def stage_ms(model, frame) -> dict:
         ev.record()
         events.setdefault(name, []).append(ev)
 
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            record(name)
+            out = fn(*args, **kwargs)
+            record(name)
+            return out
+        return call
+
     hooks = []
     for name, mod in model.named_children():
         hooks.append(mod.register_forward_pre_hook(
             lambda *_, n=name: record(n)))
         hooks.append(mod.register_forward_hook(lambda *_, n=name: record(n)))
+    for name in extra:
+        setattr(model, name, timed(name.strip("_"), getattr(model, name)))
     record("frame")
-    model(frame)
+    run()
     record("frame")
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    return {n: ev[0].elapsed_time(ev[1]) for n, ev in events.items()}
+    for name in extra:
+        delattr(model, name)
+    return {n: sum(ev[i].elapsed_time(ev[i + 1])
+                   for i in range(0, len(ev), 2))
+            for n, ev in events.items()}
 
 
-def device_busy_ms(model, frame, n_top: int = 6):
-    """Summed kernel time of one frame from torch.profiler, and the
-    kernels that take most of it."""
+def device_busy_ms(run, n_top: int = 6, model=None, ranges=()):
+    """Summed kernel time of one frame (``run()``) from torch.profiler, the
+    kernels that take most of it, and a trace reading of each model method
+    named in ``ranges`` (wrapped in a profiler range for this run): its host
+    ms, its span on the device (first to last kernel), the kernel time
+    inside that span, and the CUDA synchronize calls the host made in it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model(frame)
-        torch.cuda.synchronize()
+    def in_range(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for name in ranges:
+        setattr(model, name, in_range(name.strip("_"), getattr(model, name)))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for name in ranges:
+            delattr(model, name)
+    names = {r.strip("_") for r in ranges}
+    # a range shows on the device too, as its span: not a kernel
     kern = [(e.key, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in names]
     kern.sort(key=lambda kv: -kv[1])
-    return sum(t for _, t in kern), kern[:n_top]
+    events = prof.events()
+    syncs = [e for e in events if e.device_type == DeviceType.CPU
+             and "Synchronize" in e.name]
+    readings = {}
+    for name in names:
+        cpu = [e for e in events
+               if e.name == name and e.device_type == DeviceType.CPU]
+        gpu = [e for e in events
+               if e.name == name and e.device_type == DeviceType.CUDA]
+        if not cpu:
+            continue
+        lo, hi = cpu[0].time_range.start, cpu[-1].time_range.end
+        inside = [s for s in syncs
+                  if lo <= s.time_range.start and s.time_range.end <= hi]
+        reading = {"host_ms": sum(e.cpu_time_total for e in cpu) / 1e3,
+                   "syncs": len(inside),
+                   "sync_host_ms": sum(s.cpu_time_total for s in inside)
+                   / 1e3}
+        if gpu:
+            g0 = min(e.time_range.start for e in gpu)
+            g1 = max(e.time_range.end for e in gpu)
+            reading["device_span_ms"] = (g1 - g0) / 1e3
+            reading["kernel_ms"] = sum(
+                e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA and e.name not in names
+                and g0 <= e.time_range.start < g1) / 1e3
+        readings[name] = reading
+    readings["frame"] = {"syncs": len(syncs), "sync_host_ms": sum(
+        s.cpu_time_total for s in syncs) / 1e3}
+    return sum(t for _, t in kern), kern[:n_top], readings
+
+
+def host_syncs(run, n_top: int = 8):
+    """Host waits for the device in one frame (``run()``), counted by
+    ``torch.cuda.set_sync_debug_mode``: the total and the source lines
+    that cause most of them."""
+    import collections
+    import os
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(where.values()), where.most_common(n_top)
 
 
 def phase_tiny(dev):
@@ -300,6 +421,238 @@ def phase_tiny(dev):
     check(all(e < TINY_REL_TOL for e in errs.values()),
           f"dhd_tiny GPU vs CPU: {errs} (tol {TINY_REL_TOL})")
     print("phase 4 ok: dhd_tiny fp32 GPU vs CPU, rel-to-peak err "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (tol {TINY_REL_TOL})", flush=True)
+
+
+def stream_frames(cfg, n_frames: int, seed: int = 0):
+    """Streamed frames of one synthetic rig: new random images per frame,
+    the ego 0.5 m further along +x each frame."""
+    from dhd_tpu_torch.data import synthetic_batch
+
+    rig = synthetic_batch(cfg, batch_size=1, seed=seed, with_gt=False)
+    frames = []
+    for k in range(n_frames):
+        e2g = rig["ego2global"][:, 0].copy()
+        e2g[..., 0, 3] += 0.5 * k
+        frames.append({
+            "imgs": np.random.default_rng(100 + k).normal(
+                0, 1, rig["imgs"][:, 0].shape).astype(np.float32),
+            "sensor2ego": rig["sensor2ego"][:, 0], "ego2global": e2g,
+            "intrins": rig["intrins"][:, 0],
+            "post_rots": rig["post_rots"][:, 0],
+            "post_trans": rig["post_trans"][:, 0], "bda": rig["bda"]})
+    return frames
+
+
+def phase_cost_volume(dev, kernels):
+    """B3 kernel vs its plain version at DHD-M geometry."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.geometry import create_frustum, rigid_relative
+    from dhd_tpu_torch.models import stream_geometry
+    from dhd_tpu_torch.ops import (build_cv_plan, cv_cost_plain,
+                                   stereo_cost_volume_cuda)
+
+    cfg = get_config("dhd_m")
+    vt = cfg.vt
+    hs, ws = vt.input_size[0] // 4, vt.input_size[1] // 4
+    prev_f, curr_f = stream_frames(cfg, 2)
+    # 0.5 m forward and 0.6 deg of yaw between the frames
+    yaw = np.deg2rad(0.6)
+    e2g = curr_f["ego2global"].copy()
+    e2g[..., :2, :2] = [[np.cos(yaw), -np.sin(yaw)],
+                        [np.sin(yaw), np.cos(yaw)]]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    _, c2g_prev = stream_geometry(t(prev_f["sensor2ego"]),
+                                  t(prev_f["ego2global"]))
+    _, c2g_curr = stream_geometry(t(curr_f["sensor2ego"]), t(e2g))
+    k2s = rigid_relative(c2g_prev, c2g_curr)
+    frustum = create_frustum(vt.depth, vt.input_size, 4, vt.sid, device=dev)
+    uf, vf = build_cv_plan(frustum, k2s, t(curr_f["intrins"]),
+                           t(curr_f["post_rots"]), t(curr_f["post_trans"]),
+                           hs, ws)
+    bn, c = uf.shape[0], 256
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    prev, curr = (torch.relu(torch.randn((bn, hs, ws, c), generator=g,
+                                         device=dev)).to(bf16)
+                  for _ in range(2))
+    bias = cfg.depthnet_cfg.bias
+
+    before = stereo_cost_volume_cuda.launches
+    cost_k = stereo_cost_volume_cuda(prev, curr, uf, vf, bias)
+    torch.cuda.synchronize()
+    check(stereo_cost_volume_cuda.launches == before + 1,
+          "kernel launch not counted")
+    cost_p = cv_cost_plain(prev, curr, uf, vf, bias)
+    no_bias = cv_cost_plain(prev, curr, uf, vf, 0.0)
+    torch.cuda.synchronize()
+    err = float((cost_k - cost_p).abs().max())
+    p_k, p_p = torch.softmax(-cost_k, 1), torch.softmax(-cost_p, 1)
+    prob_err = float((p_k - p_p).abs().max())
+    check(bool(((p_k - p_p).abs() <= CV_ATOL + CV_RTOL * p_p.abs()).all()),
+          f"stereo_cost_volume_cuda probabilities differ from plain by "
+          f"{prob_err:.3e} (atol {CV_ATOL}, rtol {CV_RTOL})")
+    hit_p = (cost_p - no_bias) > bias / 2
+    hit_k = (cost_k - no_bias) > bias / 2
+    check(bool((hit_p == hit_k).all()), "bias landed on other samples")
+    off = uf < -1e3
+    n_off = int(off.sum())
+    n_valid = off.numel() - n_off
+    share_invalid = float(hit_p.float().mean())
+    share_zero = float((hit_p & ~off).float().mean())
+
+    ms = time_ms(lambda: stereo_cost_volume_cuda(prev, curr, uf, vf, bias))
+    plain_ms = time_ms(lambda: cv_cost_plain(prev, curr, uf, vf, bias),
+                       iters=5, warmup=1)
+    # least time: features, plan and cost each moved once; fp32 flops of
+    # the samples this rig needs
+    nbytes = (2 * (prev.numel() + curr.numel())
+              + 4 * (uf.numel() + vf.numel() + cost_k.numel()))
+    flops = c * (CV_FLOPS_VALID * n_valid + CV_FLOPS_OFF * n_off)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    kernels["stereo_cost_volume_cuda"] = {
+        "name": "stereo_cost_volume_cuda", "route": "cuda",
+        "source": "dhd_tpu_torch/csrc/cost_volume.cu",
+        "replaces": "dhd_tpu/ops/cost_volume_pallas.py:74",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    print(f"phase 5 ok: stereo_cost_volume_cuda vs plain at DHD-M: "
+          f"({bn}, {uf.shape[1]}, {hs}, {ws}) samples x C={c} bf16, bias "
+          f"{bias}; max abs cost err {err:.3e} (costs up to "
+          f"{float(cost_p.abs().max()):.1f}), max prob err {prob_err:.3e} "
+          f"(atol {CV_ATOL}, rtol {CV_RTOL}); invalid share "
+          f"{share_invalid:.4f} (off-image {n_off / off.numel():.4f}, "
+          f"channel-0 zeros {share_zero:.4f}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{kernels['stereo_cost_volume_cuda']['bound_ms']:.4f} ms "
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+
+
+def phase_stream(dev, kernels, card):
+    """DHD-M streaming serving: a bootstrap frame, then 5 frames through
+    the cache with a cached pool plan."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.models import DHDStereoNet, build_stream_pool_plan
+    from dhd_tpu_torch.ops import mghs_pool_cuda, stereo_cost_volume_cuda
+
+    cfg = get_config("dhd_m")
+    bf16 = torch.bfloat16
+    model = DHDStereoNet(cfg, dtype=bf16, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    frames = stream_frames(cfg, 6)
+    plan = build_stream_pool_plan(cfg, frames[0], device=dev)
+    frames = [dict(f, pool_plan=plan) for f in frames]
+
+    t0 = time.perf_counter()
+    _, cache0 = model(frames[0], cache={})          # bootstrap frame
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    mghs_pool_cuda.launches = 0
+    stereo_cost_volume_cuda.launches = 0
+    frame_ms, outs, cache = [], [], cache0
+    for frame in frames[1:]:
+        t0 = time.perf_counter()
+        out, cache = model(frame, cache=cache)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(out["occ_logits"])
+    launches = {"mghs_pool_cuda": mghs_pool_cuda.launches,
+                "stereo_cost_volume_cuda": stereo_cost_volume_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, count in launches.items():
+        kernels[name].setdefault("launches_by_path", {})["dhd_m_stream"] = \
+            count
+        check(count == 5, f"{name} launched {count} times in 5 frames")
+    want = (1, cfg.vt.x.size, cfg.vt.y.size, cfg.head_Dz, cfg.num_classes)
+    for occ in outs:
+        check(tuple(occ.shape) == want, f"occ_logits {tuple(occ.shape)}")
+        check(bool(torch.isfinite(occ).all()), "occ_logits not finite")
+    check(rel_to_peak(outs[0], outs[1]) > 0, "frames gave equal outputs")
+
+    plain = DHDStereoNet(
+        dataclasses.replace(cfg, pool_method="xla", cv_method="xla"),
+        dtype=bf16, device=dev, generator=torch.Generator().manual_seed(0))
+    plain.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    occ_p = plain(frames[1], cache=cache0)[0]["occ_logits"]
+    torch.cuda.synchronize()
+    plain_frame_ms = 1e3 * (time.perf_counter() - t0)
+    rel = rel_to_peak(outs[0], occ_p)
+    agree = float((outs[0].argmax(-1) == occ_p.argmax(-1)).float().mean())
+    check(mghs_pool_cuda.launches == 5
+          and stereo_cost_volume_cuda.launches == 5,
+          "plain path launched a kernel")
+    check(rel <= SERVE_REL_TOL and agree >= SERVE_ARGMAX_MIN,
+          f"kernel vs plain streaming: rel err {rel:.3e} (tol "
+          f"{SERVE_REL_TOL}), argmax agreement {agree:.6f} (min "
+          f"{SERVE_ARGMAX_MIN})")
+    frame = statistics.median(frame_ms)
+    print(f"phase 7 ok: DHD-M bf16 streamed 5 frames after a bootstrap, "
+          f"occ_logits {want}, finite; launches {launches}; {frame:.2f} "
+          f"ms/frame median (frames {', '.join(f'{t:.2f}' for t in frame_ms)};"
+          f" bootstrap {warm_ms:.1f} ms), peak memory {peak_gb:.2f} GB; "
+          f"plain pooling + cost volume forced, same cache: rel-to-peak err "
+          f"{rel:.3e} (tol {SERVE_REL_TOL}), argmax agreement {agree:.6f} "
+          f"(min {SERVE_ARGMAX_MIN}), {plain_frame_ms:.2f} ms; on {card}",
+          flush=True)
+
+    def step():
+        return model(frames[1], cache=cache0)
+
+    stages = stage_ms(model, step, extra=("_cost_volume",))
+    busy, top, trace = device_busy_ms(step, model=model,
+                                      ranges=("_cost_volume",))
+    n_sync, sync_at = host_syncs(step)
+    cv = trace.get("cost_volume", {})
+    print(f"phase 7 breakdown: host syncs per frame {n_sync} "
+          f"({trace['frame']['syncs']} synchronize calls in the trace, "
+          f"{trace['frame']['sync_host_ms']:.2f} ms) at {sync_at}; "
+          f"cost_volume stage in the trace: host "
+          f"{cv.get('host_ms', float('nan')):.3f} ms with "
+          f"{cv.get('syncs', 0)} synchronize calls "
+          f"({cv.get('sync_host_ms', 0.0):.3f} ms), device span "
+          f"{cv.get('device_span_ms', float('nan')):.3f} ms holding "
+          f"{cv.get('kernel_ms', float('nan')):.3f} ms of kernels; stage "
+          "device ms (CUDA events) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + (f"; device busy {busy:.2f} ms of {frame:.2f} ms/frame, idle "
+             f"share {1 - busy / frame:.3f}; top kernels (ms) "
+             + ", ".join(f"{n[:48]} {t:.3f}" for n, t in top)
+             if busy > 0 else "; device busy: not measured (no device "
+             "time in the profiler)"), flush=True)
+    del model, plain
+
+
+def phase_micro_stereo(dev):
+    """dhd_micro_stereo in fp32: two streaming steps, GPU kernel path vs
+    CPU plain path, same weights."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.models import DHDStereoNet
+
+    cfg = get_config("dhd_micro_stereo")
+    gpu = DHDStereoNet(cfg, device=dev,
+                       generator=torch.Generator().manual_seed(3))
+    cpu = DHDStereoNet(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cache_g, cache_c, errs = {}, {}, {}
+    for step, frame in enumerate(stream_frames(cfg, 2, seed=4)):
+        out_g, cache_g = gpu(frame, cache=cache_g)
+        out_c, cache_c = cpu(frame, cache=cache_c)
+        for k in ("occ_logits", "depth", "height"):
+            errs[f"{k}{step}"] = rel_to_peak(out_g[k].cpu(), out_c[k])
+    check(all(e < TINY_REL_TOL for e in errs.values()),
+          f"dhd_micro_stereo GPU vs CPU: {errs} (tol {TINY_REL_TOL})")
+    print("phase 8 ok: dhd_micro_stereo fp32 streaming, GPU vs CPU, "
+          "rel-to-peak err "
           + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
           + f" (tol {TINY_REL_TOL})", flush=True)
 
@@ -330,6 +683,12 @@ def main() -> int:
     phase_kernel(dev, kernels)
     phase_serve(dev, kernels, card)
     phase_tiny(dev)
+    phase_cost_volume(dev, kernels)
+    phase_kernel(dev, kernels, "dhd_m")
+    phase_stream(dev, kernels, card)
+    phase_micro_stereo(dev)
+    for kern in kernels.values():
+        kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,11 @@ A copy of ``dhd_tpu/config.py`` (the port imports nothing of the JAX
 package): frozen dataclasses with the reference's three named presets
 (``dhd_s``, ``dhd_m``, ``dhd_l``) plus tiny variants for tests, exposed
 through :func:`get_config`.  Fields that only steer the JAX package
-(``cv_method``, ``attn_method``, ``ln_method``, ``backbone_remat``) are
+(``cv_win_rows``, ``attn_method``, ``ln_method``, ``backbone_remat``) are
 kept so the two packages read the same presets.  In the port,
-``pool_method="xla"`` selects the plain PyTorch pooling; any other value
-pools with the CUDA kernel on the GPU (and its plain version on the CPU
-when a plan is given).
+``pool_method="xla"`` selects the plain PyTorch pooling and
+``cv_method="xla"`` the plain stereo cost volume; any other value runs the
+CUDA kernel on the GPU (and its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -203,12 +203,9 @@ class ModelConfig:
     # XLA segment_sum otherwise (training backward is a pure gather under
     # XLA); 'xla' / 'pallas' force one
     pool_method: str = "auto"
-    # stereo cost-volume backend: 'auto' = MXU Pallas kernel on TPU, XLA
-    # gather elsewhere.  cv_win_rows is the Pallas warp's source-row
-    # window: 2 suffices for rigs with no in-plane inter-frame rotation;
-    # each extra row tolerates one more row of tap drift across a
-    # 128-wide tile (~0.45 deg of roll).  Validate a real rig once via
-    # ops.cost_volume_pallas.validate_cv_plan — cv_method='xla' is exact
+    # stereo cost-volume backend: 'auto' = the CUDA kernel on the GPU,
+    # 'xla' = the plain PyTorch version.  cv_win_rows is the JAX package's
+    # Pallas row window and has no meaning here: the CUDA kernel is exact
     # for any geometry.
     cv_method: str = "auto"
     cv_win_rows: int = 2

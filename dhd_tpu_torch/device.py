@@ -1,9 +1,27 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Optional, Sequence, Union
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values: Sequence, device: Union[str, torch.device],
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A small constant tensor, copied to ``device`` once per process and
+    shared after that.  ``torch.tensor(..., device="cuda")`` copies from
+    pageable host memory, which waits for the device: a served frame must
+    not.  Callers must not modify the result in place."""
+    values = tuple(tuple(v) if isinstance(v, (list, tuple)) else v
+                   for v in values)
+    return _constant(values, torch.device(device), dtype)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

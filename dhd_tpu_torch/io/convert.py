@@ -2,8 +2,9 @@
 
 The port's modules carry the reference's state_dict key space; this module
 holds the port's own copy of the rule table that maps it onto the flax
-parameter tree (the rules of ``dhd_tpu/io/convert.py`` that DHD-S and
-``dhd_tiny`` reach, plus TinyCNN's) and of its layout transforms:
+parameter tree (the rules of ``dhd_tpu/io/convert.py`` that DHD-S, DHD-M
+and the tiny presets reach, plus TinyCNN's) and of its layout
+transforms:
 
 * conv:       flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
 * conv-T:     flax (kh, kw, I, O)  -> torch (I, O, kh, kw) + spatial flip
@@ -102,10 +103,35 @@ def _aspp(tp: str, fp: Tuple[str, ...]) -> List[Rule]:
                     (f"{tp}.bn1", fp + ("bn1",), BN)]
 
 
+def _distribution_net(tp: str, fp: Tuple[str, ...], cfg: DepthNetConfig
+                      ) -> List[Rule]:
+    """The depth_conv Sequential of DepthNet/HeightNet, and in a stereo net
+    the cost_volumn_net (the reference's spelling) beside it; indices shift
+    with the aspp/dcn flags (depthnet.py:216-244)."""
+    rules = []
+    if cfg.stereo:
+        for i in range(2):
+            rules += [(f"{tp}.cost_volumn_net.{2 * i}", fp + (f"cv_conv{i}",),
+                       CONV),
+                      (f"{tp}.cost_volumn_net.{2 * i + 1}",
+                       fp + (f"cv_bn{i}",), BN)]
+    for i in range(3):
+        rules += _basicblock(f"{tp}.depth_conv.{i}", fp + (f"block{i}",),
+                             downsample=cfg.stereo and i == 0)
+    idx = 3
+    if cfg.use_aspp:
+        rules += _aspp(f"{tp}.depth_conv.{idx}", fp + ("aspp",))
+        idx += 1
+    if cfg.use_dcn:
+        rules += [(f"{tp}.depth_conv.{idx}.conv_offset",
+                   fp + ("dcn", "conv_offset"), CONV),
+                  (f"{tp}.depth_conv.{idx}", fp + ("dcn",), DCN)]
+        idx += 1
+    return rules + [(f"{tp}.depth_conv.{idx}", fp + ("out_conv",), CONV)]
+
+
 def _heightnet(tp: str, fp: Tuple[str, ...], cfg: DepthNetConfig
                ) -> List[Rule]:
-    """HeightNet; the depth_conv Sequential's indices shift with the
-    aspp/dcn flags (depthnet.py:216-244)."""
     rules = [
         (f"{tp}.reduce_conv.0", fp + ("reduce_conv",), CONV),
         (f"{tp}.reduce_conv.1", fp + ("reduce_bn",), BN),
@@ -117,19 +143,21 @@ def _heightnet(tp: str, fp: Tuple[str, ...], cfg: DepthNetConfig
         (f"{tp}.depth_se.conv_expand", fp + ("depth_se", "conv_expand"),
          CONV1x1_DENSE),
     ]
-    tp, fp = f"{tp}.depth_conv", fp + ("depth_conv",)
-    for i in range(3):
-        rules += _basicblock(f"{tp}.{i}", fp + (f"block{i}",), False)
-    idx = 3
-    if cfg.use_aspp:
-        rules += _aspp(f"{tp}.{idx}", fp + ("aspp",))
-        idx += 1
-    if cfg.use_dcn:
-        rules += [(f"{tp}.{idx}.conv_offset", fp + ("dcn", "conv_offset"),
-                   CONV),
-                  (f"{tp}.{idx}", fp + ("dcn",), DCN)]
-        idx += 1
-    return rules + [(f"{tp}.{idx}", fp + ("out_conv",), CONV)]
+    return rules + _distribution_net(tp, fp + ("depth_conv",), cfg)
+
+
+def _depthnet_full(tp: str, fp: Tuple[str, ...], cfg: DepthNetConfig
+                   ) -> List[Rule]:
+    """DepthNet: HeightNet's rules plus the context branch."""
+    return _heightnet(tp, fp, cfg) + [
+        (f"{tp}.context_conv", fp + ("context_conv",), CONV),
+        (f"{tp}.context_mlp.fc1", fp + ("context_mlp", "fc1"), DENSE),
+        (f"{tp}.context_mlp.fc2", fp + ("context_mlp", "fc2"), DENSE),
+        (f"{tp}.context_se.conv_reduce",
+         fp + ("context_se", "conv_reduce"), CONV1x1_DENSE),
+        (f"{tp}.context_se.conv_expand",
+         fp + ("context_se", "conv_expand"), CONV1x1_DENSE),
+    ]
 
 
 def _custom_resnet(tp: str, fp: Tuple[str, ...], n_stages: int
@@ -189,7 +217,8 @@ def _occ_head(tp: str, fp: Tuple[str, ...], use_predicter: bool
 
 
 def build_rules(cfg: ModelConfig) -> List[Rule]:
-    """Rule table of the single-frame DHD model for a preset."""
+    """Rule table of the DHD model (single-frame or temporal) of a
+    preset."""
     if cfg.backbone == "resnet50":
         rules = _resnet50("img_backbone", ("img_encoder", "backbone"))
     elif cfg.backbone == "tiny_cnn":
@@ -198,18 +227,32 @@ def build_rules(cfg: ModelConfig) -> List[Rule]:
         raise NotImplementedError(cfg.backbone)
     rules += _custom_fpn("img_neck", ("img_encoder", "neck"),
                          len(cfg.img_neck_in_channels))
-    rules.append(("img_view_transformer.depth_net", ("vt", "depth_net"),
-                  CONV))
+    if cfg.depth_net == "conv1x1":
+        rules.append(("img_view_transformer.depth_net", ("vt", "depth_net"),
+                      CONV))
+    else:
+        rules += _depthnet_full("img_view_transformer.depth_net",
+                                ("vt", "depth_net"), cfg.depthnet_cfg)
     rules += _heightnet("img_view_transformer.height_net",
                         ("vt", "height_net"), cfg.heightnet_cfg)
-    rules += _custom_resnet("img_bev_encoder_backbone",
-                            ("bev_encoder", "backbone"),
-                            len(cfg.bev_encoder_channels))
-    rules += _fpn_lss("img_bev_encoder_neck", ("bev_encoder", "neck"))
+    if cfg.bev_encoder == "custom_resnet":
+        rules += _custom_resnet("img_bev_encoder_backbone",
+                                ("bev_encoder", "backbone"),
+                                len(cfg.bev_encoder_channels))
+        rules += _fpn_lss("img_bev_encoder_neck", ("bev_encoder", "neck"))
+    else:
+        rules += _unet("img_bev_encoder_backbone",
+                       ("bev_encoder", "backbone"))
     for k in range(3):
         rules += _unet(f"img_voxel_encoder{k}", (f"voxel_encoder{k}",))
     rules += _sfa("mix", ("sfa",))
-    return rules + _occ_head("occ_head", ("occ_head",), cfg.use_predicter)
+    rules += _occ_head("occ_head", ("occ_head",), cfg.use_predicter)
+    if cfg.pre_process:
+        for tp, fp in (("pre_process_net", "pre_process"),
+                       ("pre_process_net_3d", "pre_process_3d")):
+            rules += _basicblock(f"{tp}.layers.0.0", (fp, "stage0_0"),
+                                 downsample=True)
+    return rules
 
 
 def _node(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
@@ -269,9 +312,9 @@ def variables_to_state_dict(variables: Dict[str, Any], rules: List[Rule]
 
 def load_jax_variables(model: nn.Module, variables: Dict[str, Any],
                        cfg: ModelConfig) -> None:
-    """Load the JAX package's ``DHDNet`` variables (a nested dict of numpy
-    arrays) into the port's :class:`~dhd_tpu_torch.models.DHDNet` with
-    ``strict=True``, keeping the model's device and dtype."""
+    """Load the JAX package's ``DHDNet`` or ``DHDStereoNet`` variables (a
+    nested dict of numpy arrays) into the port's model of the same preset
+    with ``strict=True``, keeping each tensor's device and dtype."""
     ref = model.state_dict()
     sd = variables_to_state_dict(variables, build_rules(cfg))
     model.load_state_dict(

@@ -1,7 +1,7 @@
-"""DHD model assembly (single-frame DHD-S path): counterpart of
-``dhd_tpu/models/dhd.py``.
+"""DHD model assembly (single-frame DHD-S path, and the modules the
+temporal model shares): counterpart of ``dhd_tpu/models/dhd.py``.
 
-  image encoder (ResNet50+FPN)  ->  depth-net (1x1) + HeightNet
+  image encoder (ResNet50+FPN)  ->  depth-net (1x1 or full) + HeightNet
   -> fused MGHS voxel pooling   ->  BEV encoder || 3 slab UNets
   -> SFA fusion                 ->  channel-to-height occupancy head
 
@@ -10,7 +10,8 @@ Modules run in NCHW; the public functions keep the JAX package's layouts
 Module attributes follow the reference's state_dict key space
 (``img_backbone.*``, ``img_neck.*``, ``img_view_transformer.*``,
 ``img_bev_encoder_{backbone,neck}.*``, ``img_voxel_encoder{0,1,2}.*``,
-``mix.*``, ``occ_head.*``).
+``mix.*``, ``occ_head.*``, and in temporal models
+``pre_process_net{,_3d}.*``).
 """
 from __future__ import annotations
 
@@ -22,12 +23,12 @@ import torch
 import torch.nn as nn
 
 from dhd_tpu_torch.config import ModelConfig, ViewTransformConfig
-from dhd_tpu_torch.device import resolve_device
+from dhd_tpu_torch.device import device_constant, resolve_device
 from dhd_tpu_torch.geometry import (create_frustum, frustum_to_ego,
                                     get_mlp_input)
 from dhd_tpu_torch.nn import (SFA, CustomFPN, CustomResNet, DeformConv,
-                              FPN_LSS, HeightNet, OccHead, ResNet50, TinyCNN,
-                              UNet)
+                              DepthNet, FPN_LSS, HeightNet, OccHead, ResNet50,
+                              TinyCNN, UNet)
 from dhd_tpu_torch.ops import (PoolIndices, PoolPlan, build_pool_plan,
                                compute_pool_indices, mghs_pool,
                                mghs_pool_cuda)
@@ -48,8 +49,7 @@ def band_masks_from_height(height_prob: torch.Tensor,
     Returns:
       (..., 3) mask in height_prob.dtype.
     """
-    centers = torch.tensor(vt.height_bin_centers(), dtype=torch.float32,
-                           device=height_prob.device)
+    centers = device_constant(vt.height_bin_centers(), height_prob.device)
     hmap = centers[height_prob.argmax(dim=-1)]
     lo, t1, t2, hi = vt.mask_range
     return torch.stack([(hmap >= lo) & (hmap < t1),
@@ -102,26 +102,38 @@ def build_batch_pool_plan(cfg: ModelConfig, batch: Dict[str, Any],
 
 
 class MGHSTransform(nn.Module):
-    """MGHS view transformer (lss_heightmap.py:13-490): the 1x1 depth net,
-    HeightNet, and the fused voxel pooling."""
+    """MGHS view transformer (lss_heightmap.py:13-490): the depth net (the
+    1x1 conv of DHD-S or the full, optionally stereo, DepthNet), HeightNet,
+    and the fused voxel pooling."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.depth_net != "conv1x1":
-            raise NotImplementedError("only the DHD-S 1x1 depth net is ported")
         self.cfg = cfg
         vt = cfg.vt
-        self.depth_net = nn.Conv2d(vt.in_channels, vt.D + vt.out_channels, 1)
+        if cfg.depth_net == "conv1x1":
+            self.depth_net = nn.Conv2d(vt.in_channels,
+                                       vt.D + vt.out_channels, 1)
+        elif cfg.depth_net == "full":
+            self.depth_net = DepthNet(vt.in_channels, vt.in_channels,
+                                      vt.out_channels, vt.D, cfg.depthnet_cfg)
+        else:
+            raise NotImplementedError(cfg.depth_net)
         self.height_net = HeightNet(vt.in_channels, vt.in_channels,
                                     vt.num_height_bins, cfg.heightnet_cfg)
 
     def forward(self, x: torch.Tensor, geom: Dict[str, torch.Tensor],
-                plan: Optional[PoolPlan] = None) -> Dict[str, torch.Tensor]:
+                plan: Optional[PoolPlan] = None,
+                cost_volume: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         """
         Args:
           x: (B, N, C_in, fH, fW) image features.
-          geom: sensor2keyego / intrins / post_rots / post_trans / bda.
+          geom: sensor2keyego / intrins / post_rots / post_trans / bda, and
+            optionally mlp_sensor2keyego (the key frame's, for the camera
+            embedding of a history frame).
           plan: optional cached pooling plan.
+          cost_volume: (B*N, D, 4fH, 4fW) stereo depth probabilities, for a
+            stereo depth net.
         Returns:
           bev (B, Dy, Dx, C), vox (B, Dy, Dx, Dz, C) and the fp32 softmax
           distributions depth (B, N, fH, fW, D), height (B, N, fH, fW, H).
@@ -129,14 +141,19 @@ class MGHSTransform(nn.Module):
         vt = self.cfg.vt
         b, n, c_in, fh, fw = x.shape
         x = x.reshape(b * n, c_in, fh, fw)
-        mlp_input = get_mlp_input(*(geom[k] for k in GEOM_KEYS)
-                                  ).reshape(b * n, 27)
-        # one 1x1 conv emits depth logits + context features
-        # (lss_heightmap.py:62,482-485)
-        xd = self.depth_net(x).permute(0, 2, 3, 1)      # (BN, fH, fW, D+C)
+        mlp_input = get_mlp_input(
+            geom.get("mlp_sensor2keyego", geom["sensor2keyego"]),
+            *(geom[k] for k in GEOM_KEYS[1:])).reshape(b * n, 27)
+        if self.cfg.depth_net == "conv1x1":
+            # one 1x1 conv emits depth logits + context features
+            # (lss_heightmap.py:62,482-485)
+            xd = self.depth_net(x)
+        else:
+            xd = self.depth_net(x, mlp_input, cost_volume)
+        xd = xd.permute(0, 2, 3, 1)                     # (BN, fH, fW, D+C)
         depth = torch.softmax(xd[..., :vt.D].float(), dim=-1)
         feat = xd[..., vt.D:vt.D + vt.out_channels].contiguous()
-        height_logit = self.height_net(x, mlp_input.to(x.dtype))
+        height_logit = self.height_net(x, mlp_input)
         height = torch.softmax(height_logit.float(), dim=1).permute(0, 2, 3, 1)
         band_mask = band_masks_from_height(height, vt).to(x.dtype)
 
@@ -203,42 +220,65 @@ class DHDNet(nn.Module):
     random weights (load real ones with
     :func:`dhd_tpu_torch.io.load_jax_variables` or ``load_state_dict``) in
     eval mode on ``device`` (default: the GPU; raises if there is none).
+    The camera-embedding BatchNorms stay in fp32 in a bf16 model.
     """
+    temporal = False
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if cfg.temporal != self.temporal:
+            raise ValueError(
+                f"{cfg.name} is {'a' if cfg.temporal else 'not a'} temporal "
+                f"preset: build it with "
+                f"{'DHDStereoNet' if cfg.temporal else 'DHDNet'}")
         device = resolve_device(device)
         self.cfg = cfg
         vt = cfg.vt
-        # image encoder (the JAX ImageEncoder): backbone + neck
+        # image encoder (the JAX ImageEncoder): backbone + neck; a stereo
+        # backbone also emits its stride-4 feature, which skips the neck
         if cfg.backbone == "resnet50":
             self.img_backbone = ResNet50(cfg.backbone_out_indices)
         elif cfg.backbone == "tiny_cnn":
-            self.img_backbone = TinyCNN()
+            self.img_backbone = TinyCNN(emit_stereo=cfg.stereo)
         else:
             raise NotImplementedError(cfg.backbone)
         if cfg.img_neck != "custom_fpn":
             raise NotImplementedError(cfg.img_neck)
-        self.img_neck = CustomFPN(self.img_backbone.out_channels,
-                                  cfg.img_neck_out_channels)
+        self.img_neck = CustomFPN(
+            self.img_backbone.out_channels[1 if cfg.stereo else 0:],
+            cfg.img_neck_out_channels)
         self.img_view_transformer = MGHSTransform(cfg)
-        # BEV encoder (the JAX BEVEncoder): CustomResNet + FPN_LSS
-        if cfg.bev_encoder != "custom_resnet":
+        # BEV encoder (the JAX BEVEncoder) over the grids of every fused
+        # frame (key + history), concatenated on channels
+        n_fused = cfg.num_frames - (1 if cfg.stereo else 0)
+        c_bev = vt.out_channels * n_fused
+        if cfg.bev_encoder == "custom_resnet":
+            ch = cfg.bev_encoder_channels
+            self.img_bev_encoder_backbone = CustomResNet(c_bev, ch)
+            self.img_bev_encoder_neck = FPN_LSS(ch[-1] + ch[0],
+                                                cfg.bev_neck_out_channels)
+        elif cfg.bev_encoder == "unet":
+            # UNet + Identity neck (DHD-M)
+            self.img_bev_encoder_backbone = UNet(c_bev, cfg.bev_unet_out,
+                                                 base=cfg.unet_base)
+        else:
             raise NotImplementedError(cfg.bev_encoder)
-        ch = cfg.bev_encoder_channels
-        self.img_bev_encoder_backbone = CustomResNet(vt.out_channels, ch)
-        self.img_bev_encoder_neck = FPN_LSS(ch[-1] + ch[0],
-                                            cfg.bev_neck_out_channels)
         for k, slab in enumerate(vt.slab_sizes):
             self.add_module(f"img_voxel_encoder{k}",
-                            UNet(slab * vt.out_channels,
-                                 cfg.voxel_encoder_out[k], base=cfg.unet_base))
+                            UNet(slab * c_bev, cfg.voxel_encoder_out[k],
+                                 base=cfg.unet_base))
         self.mix = SFA(cfg.sfa_in_channels, cfg.sfa_out_channels)
         self.occ_head = OccHead(cfg.head_in_dim, cfg.head_out_dim,
                                 cfg.head_Dz, cfg.num_classes,
                                 cfg.use_predicter, return_flat=True)
+        if cfg.pre_process:
+            # one-block CustomResNets over each frame's grids
+            # (DHD_model.py:360-368)
+            c, cz = vt.out_channels, vt.out_channels * vt.z_fine.size
+            self.pre_process_net = CustomResNet(c, (c,), (1,), (1,))
+            self.pre_process_net_3d = CustomResNet(cz, (cz,), (1,), (1,))
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.eval()
@@ -251,6 +291,46 @@ class DHDNet(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.occ_head.final_conv.conv.weight.dtype
+
+    def _geom(self, batch: Dict[str, Any], keys=GEOM_KEYS
+              ) -> Dict[str, torch.Tensor]:
+        return {k: _as_tensor(batch[k], self.device, torch.float32)
+                for k in keys}
+
+    def _encode(self, imgs: torch.Tensor, stage0_only: bool = False):
+        """Image encoder over (B*N, 3, H, W) images: the neck's features
+        and, for a stereo model, the stride-4 stereo feature (the only
+        output with ``stage0_only``)."""
+        feats = self.img_backbone(imgs, stage0_only=stage0_only)
+        if stage0_only:
+            return None, feats
+        stereo_feat = None
+        if self.cfg.stereo:
+            stereo_feat, feats = feats[0], feats[1:]
+        return self.img_neck(feats), stereo_feat
+
+    def _fuse_and_predict(self, bev: torch.Tensor, vox: torch.Tensor):
+        """BEV encoder || slab UNets -> SFA -> occupancy head.
+
+        bev (B, Dy, Dx, C'), vox (B, Dy, Dx, Dz, C') ->
+        occ_logits (B, Dx, Dy, Dz, n_cls) and the packed
+        (B, Dx, Dy, Dz*n_cls), fp32."""
+        cfg = self.cfg
+        bev = bev.permute(0, 3, 1, 2)
+        x_2d = self.img_bev_encoder_backbone(bev)
+        if cfg.bev_encoder == "custom_resnet":
+            x_2d = self.img_bev_encoder_neck(x_2d)
+        s1, s2, _ = cfg.vt.slab_sizes          # vox z-minor
+        slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
+                 vox[..., s1 + s2:, :])
+        x_3d = torch.cat([
+            getattr(self, f"img_voxel_encoder{k}")(
+                collapse_z(slab).permute(0, 3, 1, 2))
+            for k, slab in enumerate(slabs)], dim=1)
+        fused = self.mix(torch.cat([x_2d, x_3d], dim=1))
+        occ = self.occ_head(fused).float()     # packed (B, Dx, Dy, Dz*n_cls)
+        return (occ.reshape(occ.shape[:3] + (cfg.head_Dz, cfg.num_classes)),
+                occ)
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -265,36 +345,13 @@ class DHDNet(nn.Module):
           occ_logits (B, Dx, Dy, Dz, n_cls), occ_logits_flat
           (B, Dx, Dy, Dz*n_cls), depth and height distributions; fp32.
         """
-        cfg = self.cfg
-        dev, dt = self.device, self.dtype
-        imgs = _as_tensor(batch["imgs"], dev, dt)
+        imgs = _as_tensor(batch["imgs"], self.device, self.dtype)
         b, n, h, w, _ = imgs.shape
-        x = imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w)
-        x = self.img_neck(self.img_backbone(x))
+        x, _ = self._encode(
+            imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w))
         x = x.reshape((b, n) + x.shape[1:])
-
-        geom = {k: _as_tensor(batch[k], dev, torch.float32)
-                for k in GEOM_KEYS}
-        vt_out = self.img_view_transformer(x, geom, batch.get("pool_plan"))
-
-        bev = vt_out["bev"].permute(0, 3, 1, 2)
-        x_2d = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(bev))
-
-        s1, s2, _ = cfg.vt.slab_sizes
-        vox = vt_out["vox"]                    # (B, Dy, Dx, Dz, C) z-minor
-        slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
-                 vox[..., s1 + s2:, :])
-        x_3d = torch.cat([
-            getattr(self, f"img_voxel_encoder{k}")(
-                collapse_z(slab).permute(0, 3, 1, 2))
-            for k, slab in enumerate(slabs)], dim=1)
-
-        fused = self.mix(torch.cat([x_2d, x_3d], dim=1))
-        occ = self.occ_head(fused).float()     # packed (B, Dx, Dy, Dz*n_cls)
-        return {
-            "occ_logits": occ.reshape(occ.shape[:3]
-                                      + (cfg.head_Dz, cfg.num_classes)),
-            "occ_logits_flat": occ,
-            "depth": vt_out["depth"],
-            "height": vt_out["height"],
-        }
+        vt_out = self.img_view_transformer(x, self._geom(batch),
+                                           batch.get("pool_plan"))
+        occ, occ_flat = self._fuse_and_predict(vt_out["bev"], vt_out["vox"])
+        return {"occ_logits": occ, "occ_logits_flat": occ_flat,
+                "depth": vt_out["depth"], "height": vt_out["height"]}

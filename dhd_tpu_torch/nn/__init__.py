@@ -1,4 +1,4 @@
-from dhd_tpu_torch.nn.depthnet import DeformConv, HeightNet
+from dhd_tpu_torch.nn.depthnet import DeformConv, DepthNet, HeightNet
 from dhd_tpu_torch.nn.fpn import CustomFPN, FPN_LSS
 from dhd_tpu_torch.nn.layers import (ASPP, BasicBlock, Bottleneck,
                                      ConvBNReLU, Mlp, SELayer,
@@ -10,7 +10,7 @@ from dhd_tpu_torch.nn.unet import UNet
 
 __all__ = [
     "ASPP", "BasicBlock", "Bottleneck", "ChannelSpatialStage", "ConvBNReLU",
-    "CustomFPN", "CustomResNet", "DeformConv", "FPN_LSS", "HeightNet", "Mlp",
-    "OccHead", "ResNet50", "SELayer", "SFA", "TinyCNN", "UNet",
-    "upsample_bilinear_align",
+    "CustomFPN", "CustomResNet", "DeformConv", "DepthNet", "FPN_LSS",
+    "HeightNet", "Mlp", "OccHead", "ResNet50", "SELayer", "SFA", "TinyCNN",
+    "UNet", "upsample_bilinear_align",
 ]

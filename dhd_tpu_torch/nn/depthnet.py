@@ -1,9 +1,10 @@
-"""HeightNet with its deformable conv: counterpart of the DHD-S parts of
+"""DepthNet and HeightNet with the deformable conv: counterpart of
 ``dhd_tpu/nn/depthnet.py`` (model_utils/depthnet.py:172-652).
 
-A reduce conv, an SE gate driven by the 27-dim camera embedding, 3
-BasicBlocks + ASPP (+ deformable conv) + a 1x1 projection to the height
-bins.  The deformable conv is mmcv's DCN v1 as configured in
+A reduce conv, SE gates driven by the 27-dim camera embedding, 3
+BasicBlocks + ASPP (+ deformable conv) + a 1x1 projection to the depth or
+height bins, an optional stereo cost-volume input, and in DepthNet a
+context branch.  The deformable conv is mmcv's DCN v1 as configured in
 depthnet.py:226-236 (deform_groups=1, conv groups=4, zero-init offsets),
 written as plain-torch bilinear sampling.
 """
@@ -13,7 +14,8 @@ import torch
 import torch.nn as nn
 
 from dhd_tpu_torch.config import DepthNetConfig
-from .layers import ASPP, BasicBlock, Mlp, SELayer
+from dhd_tpu_torch.device import device_constant
+from .layers import ASPP, BasicBlock, Mlp, SELayer, conv1x1_basic_block
 
 _KY = (-1., -1., -1., 0., 0., 0., 1., 1., 1.)
 _KX = (-1., 0., 1., -1., 0., 1., -1., 0., 1.)
@@ -66,8 +68,8 @@ class DeformConv(nn.Module):
         b, c, h, w = x.shape
         # sample positions in fp32 whatever the working dtype
         off = self.conv_offset(x).float().reshape(b, 9, 2, h, w)
-        ky = torch.tensor(_KY, device=x.device).view(1, 9, 1, 1)
-        kx = torch.tensor(_KX, device=x.device).view(1, 9, 1, 1)
+        ky = device_constant(_KY, x.device).view(1, 9, 1, 1)
+        kx = device_constant(_KX, x.device).view(1, 9, 1, 1)
         gy = torch.arange(h, dtype=torch.float32, device=x.device)
         gx = torch.arange(w, dtype=torch.float32, device=x.device)
         py = gy.view(1, 1, h, 1) + ky + off[:, :, 0]
@@ -81,15 +83,32 @@ class DeformConv(nn.Module):
         return out.reshape(b, g * og, h, w)
 
 
+class EmbeddingBN(nn.BatchNorm1d):
+    """The camera embedding's BatchNorm (``mlp_bn``), kept in fp32 whatever
+    the model's dtype, as the JAX package keeps it
+    (``dhd_tpu/nn/depthnet.py:187,219``).  The embedding holds intrinsics
+    of ~557 px, where a bf16 step is 4: with trained running statistics a
+    bf16 BN cancels to whole units away from the fp32 answer."""
+
+    def _apply(self, fn, *args, **kwargs):
+        super()._apply(fn, *args, **kwargs)
+        return super()._apply(
+            lambda t: t.float() if t.is_floating_point() else t)
+
+
 class _DistributionNet(nn.Sequential):
     """The depth_conv Sequential (depthnet.py:216-244): 3 BasicBlocks +
     optional ASPP + optional DCN + 1x1 out conv; indices shift with the
-    flags as in the reference's keys."""
+    flags as in the reference's keys.  In a stereo net the first block
+    takes the features and the reduced cost volume concatenated, with a
+    1x1 conv skip."""
 
     def __init__(self, mid: int, out_bins: int, cfg: DepthNetConfig):
         if cfg.stereo:
-            raise NotImplementedError("stereo DepthNet is not ported yet")
-        mods = [BasicBlock(mid, mid) for _ in range(3)]
+            mods = [conv1x1_basic_block(mid + out_bins, mid)]
+        else:
+            mods = [BasicBlock(mid, mid)]
+        mods += [BasicBlock(mid, mid) for _ in range(2)]
         if cfg.use_aspp:
             mods.append(ASPP(mid, cfg.aspp_mid_channels
                              if cfg.aspp_mid_channels > 0 else mid,
@@ -103,22 +122,67 @@ class _DistributionNet(nn.Sequential):
 class HeightNet(nn.Module):
     """DepthNet minus the context branch (depthnet.py:418-652).
 
-    forward(x (BN, C_in, fH, fW), mlp_input (BN, 27)) -> (BN, H, fH, fW)
-    height logits.
+    forward(x (BN, C_in, fH, fW), mlp_input (BN, 27) fp32, cost_volume)
+    -> (BN, H, fH, fW) logits.  With ``cfg.stereo`` the (BN, H, 4fH, 4fW)
+    cost volume goes through ``cost_volumn_net`` (two stride-2 3x3 convs
+    with BN; the reference's spelling) and joins the features before
+    ``depth_conv``.
     """
 
     def __init__(self, in_ch: int, mid: int, out_bins: int,
                  cfg: DepthNetConfig = DepthNetConfig()):
         super().__init__()
+        self.stereo = cfg.stereo
         self.reduce_conv = nn.Sequential(
             nn.Conv2d(in_ch, mid, 3, padding=1),
             nn.BatchNorm2d(mid), nn.ReLU(inplace=True))
-        self.bn = nn.BatchNorm1d(27)
+        self.bn = EmbeddingBN(27)
         self.depth_mlp = Mlp(27, mid, mid)
         self.depth_se = SELayer(mid)
+        if cfg.stereo:
+            self.cost_volumn_net = nn.Sequential(
+                nn.Conv2d(out_bins, out_bins, 3, 2, 1),
+                nn.BatchNorm2d(out_bins),
+                nn.Conv2d(out_bins, out_bins, 3, 2, 1),
+                nn.BatchNorm2d(out_bins))
         self.depth_conv = _DistributionNet(mid, out_bins, cfg)
 
-    def forward(self, x, mlp_input):
-        se = self.depth_mlp(self.bn(mlp_input))[..., None, None]
-        h = self.depth_se(self.reduce_conv(x), se)
+    def _embed(self, x, mlp_input):
+        """Reduced features and the normalised embedding: the BN runs in
+        fp32 and its output meets the working dtype after it."""
+        mlp = self.bn(mlp_input.float()).to(x.dtype)
+        return self.reduce_conv(x), mlp
+
+    def _distribution(self, h, cost_volume):
+        if self.stereo:
+            if cost_volume is None:
+                raise ValueError("a stereo net needs a cost volume")
+            h = torch.cat([h, self.cost_volumn_net(cost_volume)], dim=1)
         return self.depth_conv(h)
+
+    def forward(self, x, mlp_input, cost_volume=None):
+        x, mlp = self._embed(x, mlp_input)
+        h = self.depth_se(x, self.depth_mlp(mlp)[..., None, None])
+        return self._distribution(h, cost_volume)
+
+
+class DepthNet(HeightNet):
+    """The full BEVDepth-style DepthNet (depthnet.py:172-415).
+
+    forward(x, mlp_input, cost_volume) -> (BN, D + C_context, fH, fW):
+    depth logits first, then the context features.
+    """
+
+    def __init__(self, in_ch: int, mid: int, context_ch: int, depth_bins: int,
+                 cfg: DepthNetConfig = DepthNetConfig()):
+        super().__init__(in_ch, mid, depth_bins, cfg)
+        self.context_mlp = Mlp(27, mid, mid)
+        self.context_se = SELayer(mid)
+        self.context_conv = nn.Conv2d(mid, context_ch, 1)
+
+    def forward(self, x, mlp_input, cost_volume=None):
+        x, mlp = self._embed(x, mlp_input)
+        context = self.context_conv(
+            self.context_se(x, self.context_mlp(mlp)[..., None, None]))
+        h = self.depth_se(x, self.depth_mlp(mlp)[..., None, None])
+        return torch.cat([self._distribution(h, cost_volume), context], dim=1)

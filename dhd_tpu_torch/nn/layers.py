@@ -34,7 +34,8 @@ class ConvBNReLU(nn.Module):
 class BasicBlock(nn.Module):
     """mmdet BasicBlock: 3x3(s)-BN-ReLU-3x3-BN + skip, ReLU.  ``downsample``
     is None (identity) or the skip-branch module: a bare 3x3 conv in
-    CustomResNet (models/backbones/resnet.py:47-48)."""
+    CustomResNet (models/backbones/resnet.py:47-48), a 1x1 conv in the
+    stereo DepthNet."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  downsample: Optional[nn.Module] = None):
@@ -56,6 +57,12 @@ def conv_basic_block(cin: int, cout: int, stride: int) -> BasicBlock:
     """BasicBlock whose skip branch is a bare 3x3 conv with bias."""
     return BasicBlock(cin, cout, stride,
                       downsample=nn.Conv2d(cin, cout, 3, stride, 1))
+
+
+def conv1x1_basic_block(cin: int, cout: int) -> BasicBlock:
+    """BasicBlock whose skip branch is a 1x1 conv with bias (the stereo
+    DepthNet's first block, depthnet.py:204-206)."""
+    return BasicBlock(cin, cout, downsample=nn.Conv2d(cin, cout, 1))
 
 
 class Bottleneck(nn.Module):

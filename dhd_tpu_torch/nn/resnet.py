@@ -41,11 +41,16 @@ class ResNet50(nn.Module):
             planes *= 2
         self.num_stages = len(layers)
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, stage0_only: bool = False):
+        """The stage outputs in ``out_indices``; with ``stage0_only`` the
+        stride-4 ``layer1`` output alone (the stereo extra-reference
+        frame's path, bevstereo4d.py:20-40)."""
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
         outs = []
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
+            if stage0_only:
+                return x
             if stage in self.out_indices:
                 outs.append(x)
         return outs
@@ -77,9 +82,11 @@ class CustomResNet(nn.Module):
 
 class TinyCNN(nn.Module):
     """Small conv backbone standing in for ResNet-50 in the tiny presets:
-    stride-2 BasicBlocks, emitting features at stride 16 and 32."""
+    stride-2 BasicBlocks, emitting features at stride 16 and 32, and with
+    ``emit_stereo`` first the stride-4 feature."""
 
-    def __init__(self, channels: Sequence[int] = (16, 32, 64, 128)):
+    def __init__(self, channels: Sequence[int] = (16, 32, 64, 128),
+                 emit_stereo: bool = False):
         super().__init__()
         cin = 3
         for i, ch in enumerate(channels):
@@ -87,9 +94,19 @@ class TinyCNN(nn.Module):
             cin = ch
         self.b_last = conv_basic_block(cin, channels[-1], 2)
         self.num_blocks = len(channels)
-        self.out_channels = (channels[-1], channels[-1])
+        self.emit_stereo = emit_stereo
+        self.out_channels = ((channels[1],) if emit_stereo else ()) + (
+            channels[-1], channels[-1])
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, stage0_only: bool = False):
+        """The features listed in ``out_channels``; with ``stage0_only``
+        the stride-4 feature alone."""
+        outs = []
         for i in range(self.num_blocks):
             x = getattr(self, f"b{i}")(x)
-        return [x, self.b_last(x)]                       # stride 16, 32
+            if i == 1:                                   # stride 4
+                if stage0_only:
+                    return x
+                if self.emit_stereo:
+                    outs.append(x)
+        return outs + [x, self.b_last(x)]                # stride 16, 32

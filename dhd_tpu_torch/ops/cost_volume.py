@@ -1,0 +1,116 @@
+"""Stereo matching cost volume (model_utils/depthnet.py:249-361):
+counterpart of ``dhd_tpu/ops/cost_volume.py`` and of the plan builder of
+``dhd_tpu/ops/cost_volume_pallas.py``.
+
+For every stereo-resolution pixel and depth bin of the current frame,
+reproject into the previous frame's camera, sample the previous stereo
+features bilinearly, and sum the absolute difference to the current
+features over the channels; softmax(-cost) over depth.  The geometry goes
+into a plan of fractional source coordinates (:func:`build_cv_plan`); the
+cost is kernel B3 (:mod:`dhd_tpu_torch.ops.cost_volume_cuda`) or its plain
+version.  The whole op is a constant under autodiff, like the reference's
+``@torch.no_grad``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from dhd_tpu_torch.geometry import inverse_3x3
+from dhd_tpu_torch.ops.cost_volume_cuda import (cv_cost_plain,
+                                                stereo_cost_volume_cuda)
+
+SENTINEL = -1e4     # a source coordinate whose four taps all miss the map
+
+
+def stereo_reproject_grid(frustum: torch.Tensor, k2s_sensor: torch.Tensor,
+                          intrins: torch.Tensor, post_rots: torch.Tensor,
+                          post_trans: torch.Tensor, img_h: int, img_w: int
+                          ) -> torch.Tensor:
+    """Normalised sampling grid taking current pixels + depth to previous
+    pixels (DepthNet.gen_grid, depthnet.py:249-308).
+
+    Args:
+      frustum: (D, Hs, Ws, 3) stereo-resolution frustum.
+      k2s_sensor: (B, N, 4, 4) current -> previous camera.
+      intrins, post_rots: (B, N, 3, 3); post_trans: (B, N, 3).
+    Returns:
+      (B, N, D, Hs, Ws, 2) (x, y) in [-1, 1]; points behind the previous
+      camera (z < 1e-3) at -2.
+    """
+    pts = frustum[None, None] - post_trans[:, :, None, None, None, :]
+    pts = torch.einsum("bnij,bndhwj->bndhwi", inverse_3x3(post_rots), pts)
+    pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
+    combine = torch.einsum("bnij,bnjk->bnik", k2s_sensor[:, :, :3, :3],
+                           inverse_3x3(intrins))
+    pts = torch.einsum("bnij,bndhwj->bndhwi", combine, pts)
+    pts = pts + k2s_sensor[:, :, None, None, None, :3, 3]
+    neg = pts[..., 2] < 1e-3
+    pts = torch.einsum("bnij,bndhwj->bndhwi", intrins, pts)
+    uv = pts[..., :2] / pts[..., 2:3]
+    uv = torch.einsum("bnij,bndhwj->bndhwi", post_rots[:, :, :2, :2], uv)
+    uv = uv + post_trans[:, :, None, None, None, :2]
+    px = uv[..., 0] / (img_w - 1.0) * 2.0 - 1.0
+    py = uv[..., 1] / (img_h - 1.0) * 2.0 - 1.0
+    # the division above may give inf/nan where z ~ 0: replaced here
+    px = torch.where(neg, -2.0, px)
+    py = torch.where(neg, -2.0, py)
+    return torch.stack([px, py], dim=-1)
+
+
+def build_cv_plan(frustum: torch.Tensor, k2s_sensor: torch.Tensor,
+                  intrins: torch.Tensor, post_rots: torch.Tensor,
+                  post_trans: torch.Tensor, hs: int, ws: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Geometry-only warp plan: fractional source coordinates.
+
+    Returns ``uf, vf``, each (B*N, D, Hs, Ws) fp32, in stereo-grid units
+    (the ``align_corners=True`` unnormalisation of the grid).  Samples
+    behind the camera or with every tap off the map hold :data:`SENTINEL`,
+    which gives all-zero tap weights, as zero padding does.
+    """
+    b, n = k2s_sensor.shape[:2]
+    d = frustum.shape[0]
+    grid = stereo_reproject_grid(frustum, k2s_sensor, intrins, post_rots,
+                                 post_trans, hs * 4, ws * 4)
+    px, py = grid[..., 0], grid[..., 1]
+    uf = (px + 1.0) * 0.5 * (ws - 1)
+    vf = (py + 1.0) * 0.5 * (hs - 1)
+    invalid = ((px <= -2.0) | (uf <= -1.0) | (uf >= ws)
+               | (vf <= -1.0) | (vf >= hs))
+    uf = torch.where(invalid, SENTINEL, uf).reshape(b * n, d, hs, ws)
+    vf = torch.where(invalid, SENTINEL, vf).reshape(b * n, d, hs, ws)
+    return uf.contiguous(), vf.contiguous()
+
+
+@torch.no_grad()
+def stereo_cost_volume(prev_feat: torch.Tensor, curr_feat: torch.Tensor,
+                       frustum: torch.Tensor, k2s_sensor: torch.Tensor,
+                       intrins: torch.Tensor, post_rots: torch.Tensor,
+                       post_trans: torch.Tensor, bias: float = 0.0,
+                       method: str = "auto") -> torch.Tensor:
+    """Softmaxed depth probability volume from two stereo feature maps.
+
+    Args:
+      prev_feat, curr_feat: (B, N, Hs, Ws, C) stride-4 stereo features.
+      frustum: (D, Hs, Ws, 3) stereo-resolution frustum.
+      k2s_sensor: (B, N, 4, 4) current -> previous camera.
+      intrins, post_rots: (B, N, 3, 3); post_trans: (B, N, 3).
+      bias: added to the cost of invalid samples (5.0 for DHD-M/L).
+      method: 'xla' forces the plain version; otherwise the kernel on a
+        GPU (the plain version on the CPU).
+    Returns:
+      (B, N, D, Hs, Ws) fp32 probabilities.
+    """
+    b, n, hs, ws, c = curr_feat.shape
+    uf, vf = build_cv_plan(frustum, k2s_sensor, intrins, post_rots,
+                           post_trans, hs, ws)
+    prev = prev_feat.reshape(b * n, hs, ws, c).contiguous()
+    curr = curr_feat.reshape(b * n, hs, ws, c).contiguous()
+    if method == "xla":
+        cost = cv_cost_plain(prev, curr, uf, vf, bias)
+    else:
+        cost = stereo_cost_volume_cuda(prev, curr, uf, vf, bias)
+    prob = torch.softmax(-cost, dim=1)
+    return prob.reshape(b, n, -1, hs, ws)
