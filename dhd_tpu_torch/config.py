@@ -4,10 +4,11 @@ A copy of ``dhd_tpu/config.py`` (the port imports nothing of the JAX
 package): frozen dataclasses with the reference's three named presets
 (``dhd_s``, ``dhd_m``, ``dhd_l``) plus tiny variants for tests, exposed
 through :func:`get_config`.  Fields that only steer the JAX package
-(``cv_win_rows``, ``attn_method``, ``ln_method``, ``backbone_remat``) are
-kept so the two packages read the same presets.  In the port,
-``pool_method="xla"`` selects the plain PyTorch pooling and
-``cv_method="xla"`` the plain stereo cost volume; any other value runs the
+(``cv_win_rows``, ``backbone_remat``) are kept so the two packages read the
+same presets.  In the port, ``pool_method="xla"`` selects the plain
+PyTorch pooling, ``cv_method="xla"`` the plain stereo cost volume,
+``attn_method="xla"`` the plain Swin window attention and
+``ln_method="xla"`` the plain Swin LayerNorm; any other value runs the
 CUDA kernel on the GPU (and its plain version on the CPU).
 """
 from __future__ import annotations
@@ -199,9 +200,8 @@ class ModelConfig:
     # rematerialize backbone blocks in backward (reference with_cp=True,
     # DHD-S.py:52)
     backbone_remat: bool = True
-    # voxel pooling backend: 'auto' = Pallas kernel at inference on TPU,
-    # XLA segment_sum otherwise (training backward is a pure gather under
-    # XLA); 'xla' / 'pallas' force one
+    # voxel pooling backend: 'xla' = the plain PyTorch pooling; anything
+    # else = the CUDA kernel on the GPU
     pool_method: str = "auto"
     # stereo cost-volume backend: 'auto' = the CUDA kernel on the GPU,
     # 'xla' = the plain PyTorch version.  cv_win_rows is the JAX package's
@@ -209,20 +209,24 @@ class ModelConfig:
     # for any geometry.
     cv_method: str = "auto"
     cv_win_rows: int = 2
-    # Swin window-attention backend for inference: 'auto' = fused Pallas
-    # kernel on TPU (ops/window_attention.py), XLA einsum elsewhere and
-    # for training; 'xla' / 'pallas' force one
+    # Swin window-attention backend: 'xla' = the plain PyTorch composition;
+    # anything else = the CUDA kernel on the GPU (ops/window_attention.py)
     attn_method: str = "auto"
-    # Swin LayerNorm backend for inference: 'auto' = one-pass fused Pallas
-    # kernel on TPU (ops/layer_norm.py; XLA's stats+apply two-fusion
-    # lowering measured ~15x off the HBM roofline at DHD-L stage-2
-    # shapes), flax LN elsewhere and for training; 'xla' / 'pallas' force
+    # Swin LayerNorm backend: 'xla' = the plain PyTorch one-pass LayerNorm;
+    # anything else = the CUDA kernel on the GPU (ops/layer_norm.py)
     ln_method: str = "auto"
 
     @property
     def num_frames(self) -> int:
         """Total frames: key + adjacent + extra stereo ref frame."""
         return 1 + self.num_adj_frames + (1 if self.stereo else 0)
+
+    @property
+    def swin_out_indices(self) -> Tuple[int, ...]:
+        """The Swin stages whose normed outputs feed the image neck: (2, 3)
+        in a stereo model whatever ``backbone_out_indices`` lists
+        (dhd_tpu/models/dhd.py:93-94)."""
+        return (2, 3) if self.stereo else tuple(self.backbone_out_indices)
 
 
 def dhd_s() -> ModelConfig:

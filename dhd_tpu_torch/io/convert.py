@@ -2,8 +2,8 @@
 
 The port's modules carry the reference's state_dict key space; this module
 holds the port's own copy of the rule table that maps it onto the flax
-parameter tree (the rules of ``dhd_tpu/io/convert.py`` that DHD-S, DHD-M
-and the tiny presets reach, plus TinyCNN's) and of its layout
+parameter tree (the rules of ``dhd_tpu/io/convert.py`` that DHD-S, DHD-M,
+DHD-L and the tiny presets reach, plus TinyCNN's) and of its layout
 transforms:
 
 * conv:       flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
@@ -13,6 +13,9 @@ transforms:
 * 1x1 conv as dense (SE layers): flax (I, O) -> torch (O, I, 1, 1)
 * BN:         params.scale/bias, batch_stats.mean/var -> weight/bias,
   running_mean/running_var
+* LN:         params.scale/bias -> weight/bias
+* table:      a bare parameter (the Swin relative-position bias table),
+  copied as it is
 * DCN weight: flax (9, Cg, G, Og)  -> torch (G*Og, Cg, 3, 3)
 """
 from __future__ import annotations
@@ -31,6 +34,8 @@ CONVT = "convT"
 DENSE = "dense"
 CONV1x1_DENSE = "conv1x1_dense"
 BN = "bn"
+LN = "ln"
+TABLE = "table"
 DCN = "dcn"
 
 Rule = Tuple[str, Tuple[str, ...], str]      # (torch prefix, flax path, kind)
@@ -81,14 +86,48 @@ def _custom_fpn(tp: str, fp: Tuple[str, ...], n_levels: int) -> List[Rule]:
     return rules + [(f"{tp}.fpn_convs.0.conv", fp + ("fpn_conv0",), CONV)]
 
 
-def _fpn_lss(tp: str, fp: Tuple[str, ...]) -> List[Rule]:
-    return [(f"{tp}.conv.0", fp + ("conv_0",), CONV),
-            (f"{tp}.conv.1", fp + ("conv_1",), BN),
-            (f"{tp}.conv.3", fp + ("conv_3",), CONV),
-            (f"{tp}.conv.4", fp + ("conv_4",), BN),
-            (f"{tp}.up2.1", fp + ("up2_1",), CONV),
-            (f"{tp}.up2.2", fp + ("up2_2",), BN),
-            (f"{tp}.up2.4", fp + ("up2_4",), CONV)]
+def _fpn_lss(tp: str, fp: Tuple[str, ...], extra_upsample: bool = True
+             ) -> List[Rule]:
+    """FPN_LSS; the image neck (DHD-L) has no ``up2`` head."""
+    rules = [(f"{tp}.conv.0", fp + ("conv_0",), CONV),
+             (f"{tp}.conv.1", fp + ("conv_1",), BN),
+             (f"{tp}.conv.3", fp + ("conv_3",), CONV),
+             (f"{tp}.conv.4", fp + ("conv_4",), BN)]
+    if extra_upsample:
+        rules += [(f"{tp}.up2.1", fp + ("up2_1",), CONV),
+                  (f"{tp}.up2.2", fp + ("up2_2",), BN),
+                  (f"{tp}.up2.4", fp + ("up2_4",), CONV)]
+    return rules
+
+
+def _swin_block(tp: str, fp: Tuple[str, ...]) -> List[Rule]:
+    return [(f"{tp}.norm1", fp + ("norm1",), LN),
+            (f"{tp}.attn.w_msa.relative_position_bias_table",
+             fp + ("attn", "relative_position_bias_table"), TABLE),
+            (f"{tp}.attn.w_msa.qkv", fp + ("attn", "qkv"), DENSE),
+            (f"{tp}.attn.w_msa.proj", fp + ("attn", "proj"), DENSE),
+            (f"{tp}.norm2", fp + ("norm2",), LN),
+            (f"{tp}.ffn.layers.0.0", fp + ("fc1",), DENSE),
+            (f"{tp}.ffn.layers.1", fp + ("fc2",), DENSE)]
+
+
+def _swin(tp: str, fp: Tuple[str, ...], depths: Tuple[int, ...],
+          out_indices: Tuple[int, ...]) -> List[Rule]:
+    """Swin (mmcv naming, models/backbones/swin.py:680-976)."""
+    rules = [(f"{tp}.patch_embed.projection", fp + ("patch_embed",), CONV),
+             (f"{tp}.patch_embed.norm", fp + ("patch_norm",), LN)]
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            rules += _swin_block(f"{tp}.stages.{i}.blocks.{j}",
+                                 fp + (f"stage{i}_block{j}",))
+        if i < len(depths) - 1:
+            rules += [(f"{tp}.stages.{i}.downsample.norm",
+                       fp + (f"downsample{i}", "norm"), LN),
+                      (f"{tp}.stages.{i}.downsample.reduction",
+                       fp + (f"downsample{i}", "reduction"), DENSE)]
+        if i in out_indices:
+            rules.append((f"{tp}.norm{i}", fp + (f"norm{i}",), LN))
+    return rules
 
 
 def _aspp(tp: str, fp: Tuple[str, ...]) -> List[Rule]:
@@ -223,10 +262,19 @@ def build_rules(cfg: ModelConfig) -> List[Rule]:
         rules = _resnet50("img_backbone", ("img_encoder", "backbone"))
     elif cfg.backbone == "tiny_cnn":
         rules = _tinycnn("img_backbone", ("img_encoder", "backbone"))
+    elif cfg.backbone == "swin_base":
+        rules = _swin("img_backbone", ("img_encoder", "backbone"),
+                      cfg.swin_depths, cfg.swin_out_indices)
     else:
         raise NotImplementedError(cfg.backbone)
-    rules += _custom_fpn("img_neck", ("img_encoder", "neck"),
-                         len(cfg.img_neck_in_channels))
+    if cfg.img_neck == "custom_fpn":
+        rules += _custom_fpn("img_neck", ("img_encoder", "neck"),
+                             len(cfg.img_neck_in_channels))
+    elif cfg.img_neck == "fpn_lss":
+        rules += _fpn_lss("img_neck", ("img_encoder", "neck"),
+                          extra_upsample=False)
+    else:
+        raise NotImplementedError(cfg.img_neck)
     if cfg.depth_net == "conv1x1":
         rules.append(("img_view_transformer.depth_net", ("vt", "depth_net"),
                       CONV))
@@ -239,7 +287,8 @@ def build_rules(cfg: ModelConfig) -> List[Rule]:
         rules += _custom_resnet("img_bev_encoder_backbone",
                                 ("bev_encoder", "backbone"),
                                 len(cfg.bev_encoder_channels))
-        rules += _fpn_lss("img_bev_encoder_neck", ("bev_encoder", "neck"))
+        rules += _fpn_lss("img_bev_encoder_neck", ("bev_encoder", "neck"),
+                          extra_upsample=True)
     else:
         rules += _unet("img_bev_encoder_backbone",
                        ("bev_encoder", "backbone"))
@@ -270,8 +319,16 @@ def variables_to_state_dict(variables: Dict[str, Any], rules: List[Rule]
     sd: Dict[str, np.ndarray] = {}
     used = set()
     for tp, fp, kind in rules:
+        if kind == TABLE:
+            sd[tp] = np.asarray(_node(params, fp[:-1])[fp[-1]])
+            used.add((fp[:-1], fp[-1]))
+            continue
         node = _node(params, fp)
         used.update((fp, k) for k in node)
+        if kind == LN:
+            sd[f"{tp}.weight"] = np.asarray(node["scale"])
+            sd[f"{tp}.bias"] = np.asarray(node["bias"])
+            continue
         if kind == BN:
             st = _node(stats, fp)
             sd[f"{tp}.weight"] = np.asarray(node["scale"])

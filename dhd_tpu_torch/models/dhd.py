@@ -1,7 +1,8 @@
 """DHD model assembly (single-frame DHD-S path, and the modules the
 temporal model shares): counterpart of ``dhd_tpu/models/dhd.py``.
 
-  image encoder (ResNet50+FPN)  ->  depth-net (1x1 or full) + HeightNet
+  image encoder (ResNet50+CustomFPN, or Swin-B+FPN_LSS for DHD-L)
+  ->  depth-net (1x1 or full) + HeightNet
   -> fused MGHS voxel pooling   ->  BEV encoder || 3 slab UNets
   -> SFA fusion                 ->  channel-to-height occupancy head
 
@@ -28,7 +29,8 @@ from dhd_tpu_torch.geometry import (create_frustum, frustum_to_ego,
                                     get_mlp_input)
 from dhd_tpu_torch.nn import (SFA, CustomFPN, CustomResNet, DeformConv,
                               DepthNet, FPN_LSS, HeightNet, OccHead, ResNet50,
-                              TinyCNN, UNet)
+                              SwinTransformer, TinyCNN, UNet)
+from dhd_tpu_torch.nn.swin import WindowMSA
 from dhd_tpu_torch.ops import (PoolIndices, PoolPlan, build_pool_plan,
                                compute_pool_indices, mghs_pool,
                                mghs_pool_cuda)
@@ -186,13 +188,27 @@ def _normal_(w: torch.Tensor, fan_in: int, gain: float,
                 * math.sqrt(gain / fan_in))
 
 
+def _trunc_normal_(w: torch.Tensor, std: float,
+                   generator: torch.Generator) -> None:
+    """flax ``truncated_normal(std)``: a standard normal cut at ±2, scaled
+    to standard deviation ``std`` (by inverting the normal CDF)."""
+    cdf = [0.5 * (1 + math.erf(z / math.sqrt(2))) for z in (-2.0, 2.0)]
+    u = torch.rand(w.shape, generator=generator, dtype=torch.float64)
+    z = torch.erfinv(2 * (cdf[0] + u * (cdf[1] - cdf[0])) - 1) * math.sqrt(2)
+    with torch.no_grad():
+        w.copy_(z * (std / 0.87962566103423978))
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights at the scales of the JAX package's flax
     initialisers: LeCun-normal convs and dense layers (flax's default),
     He-normal DCN kernels, zero biases, identity BatchNorm (running mean 0,
-    var 1).  The DCN offset convs stay zero, as the reference initialises
-    them.  (He-normal everywhere makes the BN-less random DHD-S chaotic:
-    one bf16 ulp in the pooled grid then moves ~1% of the argmaxes.)"""
+    var 1), Swin bias tables truncated-normal(0.02)
+    (dhd_tpu/nn/swin.py:168-171); LayerNorms keep the weight 1 and bias 0
+    they are built with.  The DCN offset convs stay zero, as the
+    reference initialises them.  (He-normal everywhere makes the BN-less
+    random DHD-S chaotic: one bf16 ulp in the pooled grid then moves ~1% of
+    the argmaxes.)"""
     for name, mod in model.named_modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if name.endswith("conv_offset"):
@@ -211,6 +227,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                      generator)
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.reset_parameters()
+        elif isinstance(mod, WindowMSA):
+            _trunc_normal_(mod.relative_position_bias_table, 0.02, generator)
 
 
 class DHDNet(nn.Module):
@@ -242,13 +260,27 @@ class DHDNet(nn.Module):
             self.img_backbone = ResNet50(cfg.backbone_out_indices)
         elif cfg.backbone == "tiny_cnn":
             self.img_backbone = TinyCNN(emit_stereo=cfg.stereo)
+        elif cfg.backbone == "swin_base":
+            # a stereo Swin emits stages 2 and 3 whatever the preset lists
+            # (dhd_tpu/models/dhd.py:93-94); "xla" selects the plain
+            # attention / LayerNorm, anything else kernels B4 / B5
+            self.img_backbone = SwinTransformer(
+                cfg.swin_embed_dims, cfg.swin_depths, cfg.swin_num_heads,
+                cfg.swin_window, cfg.swin_out_indices,
+                return_stereo_feat=cfg.stereo,
+                attn_kernel=cfg.attn_method != "xla",
+                ln_kernel=cfg.ln_method != "xla")
         else:
             raise NotImplementedError(cfg.backbone)
-        if cfg.img_neck != "custom_fpn":
+        neck_in = self.img_backbone.out_channels[1 if cfg.stereo else 0:]
+        if cfg.img_neck == "custom_fpn":
+            self.img_neck = CustomFPN(neck_in, cfg.img_neck_out_channels)
+        elif cfg.img_neck == "fpn_lss":
+            self.img_neck = FPN_LSS(sum(neck_in), cfg.img_neck_out_channels,
+                                    scale_factor=2, input_feature_index=(0, 1),
+                                    extra_upsample=None)
+        else:
             raise NotImplementedError(cfg.img_neck)
-        self.img_neck = CustomFPN(
-            self.img_backbone.out_channels[1 if cfg.stereo else 0:],
-            cfg.img_neck_out_channels)
         self.img_view_transformer = MGHSTransform(cfg)
         # BEV encoder (the JAX BEVEncoder) over the grids of every fused
         # frame (key + history), concatenated on channels

@@ -1,4 +1,4 @@
-"""Temporal + stereo DHD (DHD-M): counterpart of
+"""Temporal + stereo DHD (DHD-M, DHD-L): counterpart of
 ``dhd_tpu/models/dhd_stereo.py`` (the reference's ``DHD_stereo``,
 detectors/DHD_model.py:245-667, on the BEVDet4D/BEVStereo4D frame
 protocol).
@@ -16,9 +16,11 @@ Two entry points, both inference:
   path runs.
 
 Each processed frame runs the MGHS transform with a stereo cost volume
-against the previous frame's stride-4 features (kernel B3 on the GPU),
-then the pre-process CustomResNets; the frames' grids are concatenated on
-channels, [previous, current], and go through the DHD-S fusion stack.
+against the previous frame's stride-4 features (kernel B3 on the GPU; the
+features are ResNet-50's layer1 in DHD-M and Swin-B's un-normed stage 0 in
+DHD-L), then the pre-process CustomResNets; the frames' grids are
+concatenated on channels, [previous, current], and go through the DHD-S
+fusion stack.
 """
 from __future__ import annotations
 
@@ -134,7 +136,7 @@ def build_stream_pool_plan(cfg: ModelConfig, batch: Dict[str, Any],
 
 
 class DHDStereoNet(DHDNet):
-    """Temporal + stereo DHD (DHD-M) for inference; built like
+    """Temporal + stereo DHD (DHD-M, DHD-L) for inference; built like
     :class:`~dhd_tpu_torch.models.DHDNet`."""
     temporal = True
 

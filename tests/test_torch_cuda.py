@@ -8,10 +8,13 @@ import torch
 
 from dhd_tpu_torch.config import GridConfig, ViewTransformConfig
 from dhd_tpu_torch.geometry import create_frustum
+from dhd_tpu_torch.nn.swin import _shift_attn_mask
 from dhd_tpu_torch.ops import (build_cv_plan, build_pool_plan,
                                compute_pool_indices, cv_cost_plain,
+                               fused_layer_norm_cuda, layer_norm_plain,
                                mghs_pool_cuda, mghs_pool_plan_plain,
-                               stereo_cost_volume_cuda)
+                               stereo_cost_volume_cuda, window_attention_cuda,
+                               window_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,3 +141,123 @@ def test_cost_volume_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="C=264"):
         stereo_cost_volume_cuda(wide, wide, uf, vf)
     assert stereo_cost_volume_cuda.launches == before
+
+
+def _bf16_ulps(a, b):
+    """Element-wise distance in bf16 ulps between two bf16 tensors."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 136, 512, 2048])
+def test_layer_norm_kernel_matches_plain(cuda, dtype, c):
+    """B5 against its plain version: fp32 within 1e-5; bf16 within one
+    bf16 ulp of each element plus 2^-20 (8 fp32 ulps) of the terms it is
+    computed from.  Only the order of the fp32 row sums differs, but where
+    (x - mu) * mul cancels against the bias the result is tiny, and an
+    fp32-level difference is many of its bf16 ulps."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = (3 * torch.randn((3, 77, c), generator=g, device=cuda) + 0.5
+         ).to(dtype)
+    w = 1 + 0.2 * torch.randn(c, generator=g, device=cuda)
+    b = 0.5 * torch.randn(c, generator=g, device=cuda)
+    before = fused_layer_norm_cuda.launches
+    got = fused_layer_norm_cuda(x, w, b)
+    assert fused_layer_norm_cuda.launches == before + 1
+    want = layer_norm_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0)
+        mul = (torch.rsqrt(var + 1e-6) * w).abs()
+        wf = want.float()
+        ulp = torch.where(wf == 0, 0.0,
+                          torch.exp2(torch.floor(torch.log2(wf.abs())) - 7))
+        tol = ulp + 2.0 ** -20 * ((xf.abs() + mu.abs()) * mul + b.abs())
+        assert bool(((got.float() - wf).abs() <= tol).all())
+        assert float((_bf16_ulps(got, want) <= 1).float().mean()) > 0.999
+
+
+def test_layer_norm_kernel_rejects_bad_inputs(cuda):
+    x = torch.randn((4, 64), device=cuda)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    before = fused_layer_norm_cuda.launches
+    with pytest.raises(ValueError, match="C=12"):
+        fused_layer_norm_cuda(x[:, :12].contiguous(), w[:12], b[:12])
+    with pytest.raises(ValueError, match="C=4096"):
+        fused_layer_norm_cuda(x.repeat(1, 64), w.repeat(64), b.repeat(64))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_layer_norm_cuda(x.t().contiguous().t(), w, b)
+    with pytest.raises(ValueError, match="weight"):
+        fused_layer_norm_cuda(x, w.bfloat16(), b)
+    with pytest.raises(TypeError):
+        fused_layer_norm_cuda(x.half(), w, b)
+    assert fused_layer_norm_cuda.launches == before
+
+
+def _attn_inputs(dev, dtype, ws, heads, hd, shifted, n_img_w=2, seed=7):
+    """Unit-normal qkv and bias (tools/check_attn_parity.py) for images of
+    2 x n_img_w windows, with the real shift mask or none."""
+    n, c = ws * ws, heads * hd
+    hp, wp = 2 * ws, n_img_w * ws
+    n_img = 2 * n_img_w
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((3 * n_img, n, 3 * c), generator=g, device=dev)
+    bias = torch.randn((heads, n, n), generator=g, device=dev)
+    mask = (torch.from_numpy(_shift_attn_mask(hp, wp, ws, ws // 2)).to(dev)
+            if shifted else None)
+    return (qkv.to(dtype), bias.to(dtype),
+            None if mask is None else mask.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws,heads,hd,shifted", [
+    (4, 2, 16, True), (7, 3, 32, False), (12, 4, 32, True),
+    (12, 2, 16, False), (16, 2, 32, True)])
+def test_window_attention_kernel_matches_plain(cuda, dtype, ws, heads, hd,
+                                               shifted):
+    """B4 against its plain version (the XLA composition): fp32 within
+    1e-5; bf16 within 4 bf16 ulps of the output's peak, the bar the TPU
+    kernel held against XLA (tools/check_attn_parity.py).  Window 16
+    (N = 256) takes more than 48 KB of shared memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv, bias, mask = _attn_inputs(cuda, dtype, ws, heads, hd, shifted)
+    before = window_attention_cuda.launches
+    got = window_attention_cuda(qkv, bias, mask, heads)
+    assert window_attention_cuda.launches == before + 1
+    want = window_attention_plain(qkv, bias, mask, heads)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        peak = want.float().abs().max()
+        ulp = 2.0 ** (torch.floor(torch.log2(peak)) - 7)
+        assert float((got.float() - want.float()).abs().max()) <= 4 * ulp
+
+
+def test_window_attention_kernel_rejects_bad_inputs(cuda):
+    qkv, bias, mask = _attn_inputs(cuda, torch.float32, 4, 2, 16, True)
+    before = window_attention_cuda.launches
+    with pytest.raises(ValueError, match="unsupported shape"):
+        window_attention_cuda(qkv, bias, mask, 4)            # hd = 8
+    big = torch.zeros((2, 289, 96), device=cuda)             # window 17
+    with pytest.raises(ValueError, match="unsupported shape"):
+        window_attention_cuda(big, torch.zeros((2, 289, 289), device=cuda),
+                              None, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        window_attention_cuda(qkv[:6].contiguous(), bias, mask, 2)
+    with pytest.raises(ValueError, match="bias"):
+        window_attention_cuda(qkv, bias.bfloat16(), mask, 2)
+    with pytest.raises(ValueError, match="qkv"):
+        window_attention_cuda(qkv.transpose(0, 1), bias, mask, 2)
+    with pytest.raises(TypeError):
+        window_attention_cuda(qkv.half(), bias.half(), mask.half(), 2)
+    assert window_attention_cuda.launches == before
