@@ -23,12 +23,15 @@ Phases, one line each; any failure raises and exits non-zero:
 6. kernel vs plain: ``mghs_pool_cuda`` (B1) again at DHD-M shapes (the
    streamed frame's plan, 88 depth bins), within one bf16 ulp;
 7. streaming serving: DHD-M at full width in bf16 with seeded random
-   weights and a cached pool plan, one bootstrap frame then 5 frames with
-   the ego 0.5 m further each; B1 and B3 must launch once per frame; one
-   frame is repeated from the same cache with the plain pooling and cost
-   volume forced and must agree; then one frame read by CUDA events, by
-   torch.profiler (with the cost-volume stage as a range) and by the sync
-   debug mode (the lines where the host waits for the device);
+   weights, a cached pool plan and the rig-static half of the stereo warp
+   plan (``cv_static``), one bootstrap frame then 5 frames with the ego
+   0.5 m further each; B1 and B3 must launch once per frame; one frame is
+   repeated from the same cache with the plain pooling and cost volume
+   forced (the plain cost volume ignores ``cv_static``) and must agree;
+   then one frame read by CUDA events, by torch.profiler (with the
+   cost-volume stage as a range) and by the sync debug mode (the lines
+   where the host waits for the device), and the cost-volume stage's ms
+   with and without ``cv_static``;
 8. small reference: dhd_micro_stereo in fp32, two streaming steps on the
    GPU against the same weights on the CPU;
 9. kernel vs plain: ``window_attention_cuda`` (B4) at DHD-L's four Swin-B
@@ -49,18 +52,38 @@ Phases, one line each; any failure raises and exits non-zero:
    (the backbone outputs' kernel-vs-plain drift is printed beside it);
    then the same breakdown as phase 7;
 13. small reference: a tiny DHD-L-shaped config in fp32, two streaming
-   steps, GPU against CPU.
+   steps, GPU against CPU;
+14. kernel vs plain: ``sorted_segment_sum`` (B2) at the ``--what pool``
+   shapes of DHD-S and DHD-L (ids uniform over 1.5 V, bf16 in and out),
+   in fp32, with 10% of the points on one id, with negative ids, and at
+   C = 8, 96, 160, 256 on fewer points: fp32 out within 2^-20 of the
+   summed |terms|, bf16 out within one bf16 ulp plus that, empty segments
+   exactly 0, the unsorted entry (``segment_sum_pooling``) bit for bit the
+   sorted one; kernel, plain and ``torch.segment_reduce`` ms, the
+   unsorted entry split into sort, row gather and kernel, the bound,
+   ptxas's registers;
+15. the benchmark CLI on the card, in-process through
+   ``dhd_tpu_torch.cli.benchmark.main``: ``--what pool`` at DHD-S and
+   DHD-L (B1 and B2 must launch), ``--what stream`` at DHD-M (its frames
+   must ship ``cv_static``, and B1 and B3 must launch), ``--what cv`` at
+   DHD-L,
+   ``--what stages`` and ``--what flops`` at DHD-S, and ``--what full
+   --profile`` at DHD-S; every time it prints must be finite.
 
-Then one JSON line listing the kernels (each shape's numbers under
-``shapes``, launches per served path under ``launches_by_path``), the
+Then one JSON line listing the kernels B1-B5 (each shape's numbers under
+``shapes``, launches per served path and per CLI run under
+``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +116,7 @@ LN_FLOPS = 8                # per element: x, x^2 sums; sub, mul, fma, ...
 PHASE_OF = {"dhd_s": {"pool": 2}, "dhd_m": {"pool": 6, "cv": 5,
                                             "stream": 7},
             "dhd_l": {"pool": 11, "cv": 11, "stream": 12}}
+SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
 
 
 def check(ok: bool, msg: str) -> None:
@@ -517,7 +541,7 @@ def phase_cost_volume(dev, kernels, preset="dhd_m"):
     (Swin-B stage 0, C=128)."""
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.geometry import create_frustum, rigid_relative
-    from dhd_tpu_torch.models import stream_geometry
+    from dhd_tpu_torch.models import stereo_feat_channels, stream_geometry
     from dhd_tpu_torch.ops import (build_cv_plan, cv_cost_plain,
                                    stereo_cost_volume_cuda)
 
@@ -543,7 +567,7 @@ def phase_cost_volume(dev, kernels, preset="dhd_m"):
                            t(curr_f["post_rots"]), t(curr_f["post_trans"]),
                            hs, ws)
     bn = uf.shape[0]
-    c = cfg.swin_embed_dims if cfg.backbone == "swin_base" else 256
+    c = stereo_feat_channels(cfg)
     g = torch.Generator(device=dev).manual_seed(5)
     bf16 = torch.bfloat16
     prev, curr = (torch.relu(torch.randn((bn, hs, ws, c), generator=g,
@@ -835,7 +859,8 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
     """Streaming serving of a temporal preset (DHD-M, DHD-L): a bootstrap
     frame, then 5 frames through the cache with a cached pool plan."""
     from dhd_tpu_torch import get_config
-    from dhd_tpu_torch.models import DHDStereoNet, build_stream_pool_plan
+    from dhd_tpu_torch.models import (DHDStereoNet, build_stream_cv_static,
+                                      build_stream_pool_plan)
 
     cfg = get_config(preset)
     phase = PHASE_OF[preset]["stream"]
@@ -845,7 +870,8 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
                          generator=torch.Generator().manual_seed(0))
     frames = stream_frames(cfg, 6)
     plan = build_stream_pool_plan(cfg, frames[0], device=dev)
-    frames = [dict(f, pool_plan=plan) for f in frames]
+    static = build_stream_cv_static(cfg, frames[0], device=dev)
+    frames = [dict(f, pool_plan=plan, cv_static=static) for f in frames]
 
     t0 = time.perf_counter()
     _, cache0 = model(frames[0], cache={})          # bootstrap frame
@@ -917,6 +943,20 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
                                       ranges=("_cost_volume",))
     n_sync, sync_at = host_syncs(step)
     cv = trace.get("cost_volume", {})
+    # the cost-volume stage of one frame planned from cv_static and
+    # stepwise, three times each in turns
+    stepwise = {k: v for k, v in frames[1].items() if k != "cv_static"}
+    cv_ms = {"with": [], "without": []}
+    for _ in range(3):
+        for key, batch in (("with", frames[1]), ("without", stepwise)):
+            cv_ms[key].append(stage_ms(
+                model, lambda batch=batch: model(batch, cache=cache0),
+                extra=("_cost_volume",))["cost_volume"])
+    print(f"phase {phase} cv_static: cost_volume stage ms (CUDA events) "
+          f"with cv_static {', '.join(f'{t:.3f}' for t in cv_ms['with'])}"
+          f", stepwise plan "
+          f"{', '.join(f'{t:.3f}' for t in cv_ms['without'])}; on {card}",
+          flush=True)
     print(f"phase {phase} breakdown: host syncs per frame {n_sync} "
           f"({trace['frame']['syncs']} synchronize calls in the trace, "
           f"{trace['frame']['sync_host_ms']:.2f} ms) at {sync_at}; "
@@ -976,6 +1016,209 @@ def phase_small_stream(dev, cfg, phase):
           + f" (tol {TINY_REL_TOL})", flush=True)
 
 
+def segsum_cases():
+    """B2's cases: (label, P, C, V, in dtype, out dtype, ids) with the
+    ``--what pool`` shapes of DHD-S and DHD-L, P = N*D*fH*fW points of C
+    channels into V = Dz*Dy*Dx voxels."""
+    from dhd_tpu_torch import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = {}
+    for preset in ("dhd_s", "dhd_l"):
+        vt = get_config(preset).vt
+        fh, fw = vt.feat_size
+        shapes[preset] = (get_config(preset).num_cams * vt.D * fh * fw,
+                          vt.out_channels,
+                          vt.z_fine.size * vt.y.size * vt.x.size)
+    p, c, v = shapes["dhd_s"]
+    return ([("dhd_s", *shapes["dhd_s"], bf16, bf16, "uniform"),
+             ("dhd_l", *shapes["dhd_l"], bf16, bf16, "uniform"),
+             ("dhd_s_fp32", p, c, v, f32, f32, "uniform"),
+             ("dhd_s_hot", p, c, v, bf16, bf16, "hot"),
+             ("dhd_s_negative", p, c, v, bf16, bf16, "negative")]
+            + [(f"c{cc}", 65536, cc, 100000, bf16, bf16, "uniform")
+               for cc in (8, 96, 160, 256)])
+
+
+def segsum_ids(rng, p, v, layout):
+    """Ids uniform over [0, 1.5 V); 'hot' puts 10% of the points on one
+    id (tests/test_pallas_pool.py), 'negative' draws from [-V/4, 1.5 V)."""
+    seg = rng.integers(0, int(SEGSUM_IDS * v), p)
+    if layout == "hot":
+        seg[: p // 10] = v // 2
+    elif layout == "negative":
+        seg = rng.integers(-v // 4, int(SEGSUM_IDS * v), p)
+    return seg.astype(np.int32)
+
+
+def library_segment_reduce(vals_s, seg_s, v):
+    """The one PyTorch call that computes a sorted segment-sum:
+    ``torch.segment_reduce`` with lengths, over the rows whose ids are in
+    [0, V), in their own dtype."""
+    lo, hi = (int(i) for i in torch.searchsorted(
+        seg_s, torch.tensor([0, v], dtype=seg_s.dtype, device=seg_s.device)))
+    rows = vals_s[lo:hi]
+    lengths = torch.bincount(seg_s[lo:hi].long(), minlength=v)
+    return lambda: torch.segment_reduce(rows, "sum", lengths=lengths,
+                                        unsafe=True)
+
+
+def phase_segment_sum(dev, kernels, ptxas):
+    """B2 vs its plain version at the cases of :func:`segsum_cases`."""
+    from dhd_tpu_torch.ops import (segment_sum_pooling, sorted_segment_sum,
+                                   sorted_segment_sum_plain)
+
+    kern = kernels["sorted_segment_sum"] = {
+        "name": "sorted_segment_sum", "route": "cuda",
+        "source": "dhd_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "dhd_tpu/ops/pallas_pool.py:48",
+        "launches": None, "max_abs_err": 0.0, "shapes": {}}
+    rng = np.random.default_rng(14)
+    for label, p, c, v, dt, out_dt, layout in segsum_cases():
+        vals = torch.from_numpy(rng.normal(0, 1, (p, c)).astype(
+            np.float32)).to(dev, dt)
+        seg = torch.from_numpy(segsum_ids(rng, p, v, layout)).to(dev)
+        seg_s, order = torch.sort(seg, stable=True)
+        order32 = order.to(torch.int32)
+        vals_s = vals[order].contiguous()
+        before = sorted_segment_sum.launches
+        out_k = sorted_segment_sum(vals_s, seg_s, v, out_dt)
+        torch.cuda.synchronize()
+        check(sorted_segment_sum.launches == before + 1,
+              "kernel launch not counted")
+        out_p = sorted_segment_sum_plain(vals_s, seg_s, v, out_dt)
+        terms = sorted_segment_sum_plain(vals_s.abs(), seg_s, v)
+        err = float((out_k.float() - out_p.float()).abs().max())
+        if out_dt == torch.bfloat16:
+            share = sum_error_share(out_k, out_p, terms)
+        else:
+            diff = (out_k - out_p).abs()
+            share = float(torch.where(diff > 0, diff / (TERM_TOL * terms),
+                                      0.0).max())
+        check(share <= 1, f"sorted_segment_sum {label}: error {share:.3f} of "
+              f"its tolerance from plain (max abs {err:.3e})")
+        keep = seg_s[(seg_s >= 0) & (seg_s < v)].long()
+        empty = torch.bincount(keep, minlength=v) == 0
+        check(bool((out_k[empty] == 0).all()),
+              f"sorted_segment_sum {label}: an empty segment is not 0")
+        same = None
+        if out_dt == dt:
+            same = torch.equal(segment_sum_pooling(vals, seg, v), out_k)
+            check(same, f"segment_sum_pooling {label}: differs from the "
+                  "sorted entry")
+
+        lib = library_segment_reduce(vals_s, seg_s, v)
+        ms = time_ms(lambda: sorted_segment_sum(vals_s, seg_s, v, out_dt))
+        plain_ms = time_ms(lambda: sorted_segment_sum_plain(
+            vals_s, seg_s, v, out_dt), iters=10, warmup=2)
+        split = {
+            "sort_ms": time_ms(lambda: torch.sort(seg, stable=True)),
+            "gather_ms": time_ms(lambda: vals[order]),
+            "kernel_gathering_ms": time_ms(lambda: sorted_segment_sum(
+                vals, seg_s, v, out_dt, order=order32)),
+            "entry_ms": time_ms(lambda: segment_sum_pooling(vals, seg, v))
+            if out_dt == dt else None}
+        # least time: the rows and ids in [0, V) read once (the sorted
+        # dropped rows are never read), the output written once; one fp32
+        # add per kept row element
+        n_valid = keep.numel()
+        nbytes = (n_valid * c * vals.element_size() + 4 * n_valid
+                  + v * c * out_k.element_size())
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = n_valid * c / FP32_FLOP_PER_S
+        hot = int(torch.bincount(keep, minlength=v).max())
+        kern["shapes"][label] = measured = dict(
+            {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": time_ms(lib),
+             "bound_ms": 1e3 * max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "P": p, "C": c, "V": v, "n_valid": n_valid,
+             "busiest_segment": hot}, **split)
+        kern["max_abs_err"] = max(kern["max_abs_err"], err)
+        print(f"phase 14 ok: sorted_segment_sum vs plain at {label} "
+              f"(P={p}, C={c}, V={v}, {str(dt)[6:]} -> {str(out_dt)[6:]}, "
+              f"ids {layout}, {keep.numel()} in range, busiest segment "
+              f"{hot}): max abs err {err:.3e}, {share:.3f} of the tolerance "
+              f"({'1 bf16 ulp + ' if out_dt == torch.bfloat16 else ''}"
+              f"2^-20 of the terms); empty segments 0 "
+              f"({int(empty.sum())}); unsorted entry "
+              f"{'bit-identical' if same else 'not compared'}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, segment_reduce "
+              f"{measured['library_ms']:.4f} ms, bound "
+              f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}, "
+              f"{nbytes / 1e6:.2f} MB); unsorted entry "
+              + (f"{split['entry_ms']:.4f} ms = " if split["entry_ms"]
+                 else "")
+              + f"sort {split['sort_ms']:.4f} + kernel gathering the rows "
+              f"{split['kernel_gathering_ms']:.4f} ms (a separate row "
+              f"gather would be {split['gather_ms']:.4f} ms)", flush=True)
+        del vals, vals_s, out_k, out_p, terms
+    kern.update({key: kern["shapes"]["dhd_s"][key]
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")})
+    # per instantiation <in, out, channels per lane>: registers, spills
+    print("phase 14: ptxas: " + "; ".join(
+        re.sub(r"^.*kernelI(.*)EEvPKT_.*?:", r"<\1>:", ln)
+        for ln in ptxas.get("segment_sum", [])), flush=True)
+
+
+def phase_cli(dev, kernels):
+    """The benchmark CLI in-process on the card: each run's printed times
+    must be finite, and the kernels of its path must launch."""
+    from dhd_tpu_torch.cli.benchmark import main as benchmark
+    from dhd_tpu_torch.ops import (mghs_pool_cuda, sorted_segment_sum,
+                                   stereo_cost_volume_cuda)
+
+    runs = [("pool", "dhd_s", ["--iters", "10"]),
+            ("pool", "dhd_l", ["--iters", "10"]),
+            ("stream", "dhd_m", ["--iters", "5"]),
+            ("cv", "dhd_l", ["--iters", "5"]),
+            ("stages", "dhd_s", ["--iters", "5"]),
+            ("flops", "dhd_s", []),
+            ("full", "dhd_s", ["--iters", "5", "--profile",
+                               "--profile-ops", "8"])]
+    counted = (sorted_segment_sum, mghs_pool_cuda, stereo_cost_volume_cuda)
+    # the path each run must go through, beyond finite times
+    must = {"pool": (sorted_segment_sum, mghs_pool_cuda),
+            "stream": (mghs_pool_cuda, stereo_cost_volume_cuda),
+            "cv": (stereo_cost_volume_cuda,), "stages": (mghs_pool_cuda,),
+            "full": (mghs_pool_cuda,), "flops": ()}
+    for what, preset, extra in runs:
+        for fn in counted:
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = benchmark(["--preset", preset, "--what", what, *extra])
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        times = [float(t) for t in re.findall(r"(\S+) ms\b", text)]
+        check(rc == 0, f"cli --what {what} returned {rc}")
+        check(what == "flops" or (times and all(
+            np.isfinite(t) and t >= 0 for t in times)),
+            f"cli --what {what} --preset {preset}: times {times}")
+        if what == "flops":
+            flops = re.search(r"forward flops: ([\d.]+) G", text)
+            check(flops is not None and float(flops.group(1)) > 0,
+                  f"cli --what flops: {text}")
+        for fn in must[what]:
+            check(fn.launches > 0, f"cli --what {what} --preset {preset}: "
+                  f"{fn.__name__} never launched")
+        if what == "stream":
+            check("ship pool_plan and cv_static" in text,
+                  "cli --what stream did not ship cv_static")
+        if what == "pool":
+            for fn in must["pool"]:
+                kernels[fn.__name__].setdefault("launches_by_path", {})[
+                    f"cli_pool_{preset}"] = fn.launches
+        print(f"phase 15 ok: cli --preset {preset} --what {what} "
+              f"{' '.join(extra)} in {wall:.1f} s; launches {launches}"
+              + "".join(f"\n    {ln}" for ln in text.splitlines()),
+              flush=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1013,6 +1256,8 @@ def main() -> int:
     phase_kernel(dev, kernels, "dhd_l")
     phase_stream(dev, kernels, card, "dhd_l")
     phase_small_stream(dev, tiny_dhd_l(), 13)
+    phase_segment_sum(dev, kernels, ptxas)
+    phase_cli(dev, kernels)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))

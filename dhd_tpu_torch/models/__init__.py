@@ -6,8 +6,9 @@ from dhd_tpu_torch.config import ModelConfig
 from dhd_tpu_torch.models.dhd import (DHDNet, MGHSTransform,
                                       band_masks_from_height,
                                       build_batch_pool_plan, collapse_z,
-                                      init_weights)
+                                      init_weights, stereo_feat_channels)
 from dhd_tpu_torch.models.dhd_stereo import (DHDStereoNet,
+                                             build_stream_cv_static,
                                              build_stream_pool_plan,
                                              prepare_stereo_inputs,
                                              shift_grid, stream_geometry,
@@ -25,6 +26,6 @@ def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
 
 __all__ = ["DHDNet", "DHDStereoNet", "MGHSTransform",
            "band_masks_from_height", "build_batch_pool_plan", "build_model",
-           "build_stream_pool_plan", "collapse_z", "init_weights",
-           "prepare_stereo_inputs", "shift_grid", "stream_geometry",
-           "uncollapse_z"]
+           "build_stream_cv_static", "build_stream_pool_plan", "collapse_z",
+           "init_weights", "prepare_stereo_inputs", "shift_grid",
+           "stereo_feat_channels", "stream_geometry", "uncollapse_z"]

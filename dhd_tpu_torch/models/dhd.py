@@ -38,6 +38,33 @@ from dhd_tpu_torch.ops import (PoolIndices, PoolPlan, build_pool_plan,
 GEOM_KEYS = ("sensor2keyego", "intrins", "post_rots", "post_trans", "bda")
 
 
+def build_image_backbone(cfg: ModelConfig) -> nn.Module:
+    """The image backbone of ``cfg``; a stereo one lists its stride-4
+    feature first in ``out_channels``."""
+    if cfg.backbone == "resnet50":
+        return ResNet50(cfg.backbone_out_indices)
+    if cfg.backbone == "tiny_cnn":
+        return TinyCNN(emit_stereo=cfg.stereo)
+    if cfg.backbone == "swin_base":
+        # a stereo Swin emits stages 2 and 3 whatever the preset lists
+        # (dhd_tpu/models/dhd.py:93-94); "xla" selects the plain
+        # attention / LayerNorm, anything else kernels B4 / B5
+        return SwinTransformer(
+            cfg.swin_embed_dims, cfg.swin_depths, cfg.swin_num_heads,
+            cfg.swin_window, cfg.swin_out_indices,
+            return_stereo_feat=cfg.stereo,
+            attn_kernel=cfg.attn_method != "xla",
+            ln_kernel=cfg.ln_method != "xla")
+    raise NotImplementedError(cfg.backbone)
+
+
+def stereo_feat_channels(cfg: ModelConfig) -> int:
+    """Channels of the stride-4 feature a stereo backbone emits, without
+    building it: ResNet-50 layer1, TinyCNN's second block or Swin stage 0."""
+    return {"resnet50": 256, "tiny_cnn": 32,
+            "swin_base": cfg.swin_embed_dims}[cfg.backbone]
+
+
 def band_masks_from_height(height_prob: torch.Tensor,
                            vt: ViewTransformConfig) -> torch.Tensor:
     """Per-pixel height-band gates from the height distribution.
@@ -256,22 +283,7 @@ class DHDNet(nn.Module):
         vt = cfg.vt
         # image encoder (the JAX ImageEncoder): backbone + neck; a stereo
         # backbone also emits its stride-4 feature, which skips the neck
-        if cfg.backbone == "resnet50":
-            self.img_backbone = ResNet50(cfg.backbone_out_indices)
-        elif cfg.backbone == "tiny_cnn":
-            self.img_backbone = TinyCNN(emit_stereo=cfg.stereo)
-        elif cfg.backbone == "swin_base":
-            # a stereo Swin emits stages 2 and 3 whatever the preset lists
-            # (dhd_tpu/models/dhd.py:93-94); "xla" selects the plain
-            # attention / LayerNorm, anything else kernels B4 / B5
-            self.img_backbone = SwinTransformer(
-                cfg.swin_embed_dims, cfg.swin_depths, cfg.swin_num_heads,
-                cfg.swin_window, cfg.swin_out_indices,
-                return_stereo_feat=cfg.stereo,
-                attn_kernel=cfg.attn_method != "xla",
-                ln_kernel=cfg.ln_method != "xla")
-        else:
-            raise NotImplementedError(cfg.backbone)
+        self.img_backbone = build_image_backbone(cfg)
         neck_in = self.img_backbone.out_channels[1 if cfg.stereo else 0:]
         if cfg.img_neck == "custom_fpn":
             self.img_neck = CustomFPN(neck_in, cfg.img_neck_out_channels)

@@ -8,7 +8,8 @@ Two entry points, both inference:
 * the streaming step ``model(batch, cache=...)``: ``batch`` holds the
   current frame only (imgs (B, N, H, W, 3), sensor2ego / ego2global
   (B, N, 4, 4), intrins, post_rots, post_trans, bda, optional pool_plan
-  from :func:`build_stream_pool_plan`); the previous frame's stereo
+  from :func:`build_stream_pool_plan` and cv_static from
+  :func:`build_stream_cv_static`); the previous frame's stereo
   features and BEV/voxel grids come from ``cache`` (``{}`` on the first
   frame), and it returns ``(outputs, new_cache)``;
 * the F-frame forward ``model(batch, with_prev=...)`` over a frames-major
@@ -33,7 +34,8 @@ from dhd_tpu_torch.config import GridConfig, ModelConfig
 from dhd_tpu_torch.device import device_constant, resolve_device
 from dhd_tpu_torch.geometry import (create_frustum, inverse_3x3,
                                     rigid_inverse, rigid_relative)
-from dhd_tpu_torch.ops import PoolPlan, grid_sample_2d, stereo_cost_volume
+from dhd_tpu_torch.ops import (PoolPlan, build_cv_static, grid_sample_2d,
+                               stereo_cost_volume)
 
 from .dhd import DHDNet, _as_tensor, build_batch_pool_plan, collapse_z
 
@@ -135,6 +137,24 @@ def build_stream_pool_plan(cfg: ModelConfig, batch: Dict[str, Any],
                                  device=device)
 
 
+def build_stream_cv_static(cfg: ModelConfig, batch: Dict[str, Any],
+                           device: Optional[Union[str, torch.device]] = None
+                           ) -> Dict[str, Any]:
+    """The rig-static half of a streamed frame's stereo warp plan
+    (dhd_stereo.py:492-510): frustum, intrinsics and image aug only, so a
+    fixed rig computes it once, on the model's device, and passes it as
+    ``batch["cv_static"]`` with every frame; the per-frame residual is
+    :func:`~dhd_tpu_torch.ops.cv_plan_from_static`."""
+    device = resolve_device(device)
+    vt = cfg.vt
+    frustum = create_frustum(vt.depth, vt.input_size, 4, vt.sid,
+                             device=device)
+    hs, ws = vt.input_size[0] // 4, vt.input_size[1] // 4
+    return build_cv_static(
+        frustum, *(_as_tensor(batch[k], device, torch.float32)
+                   for k in ("intrins", "post_rots", "post_trans")), hs, ws)
+
+
 class DHDStereoNet(DHDNet):
     """Temporal + stereo DHD (DHD-M, DHD-L) for inference; built like
     :class:`~dhd_tpu_torch.models.DHDNet`."""
@@ -150,11 +170,13 @@ class DHDStereoNet(DHDNet):
 
     def _cost_volume(self, prev_sf: Optional[torch.Tensor],
                      sf: torch.Tensor, k2s: Optional[torch.Tensor],
-                     geom: Dict[str, torch.Tensor], b: int, n: int
+                     geom: Dict[str, torch.Tensor], b: int, n: int,
+                     static: Optional[Dict[str, Any]] = None
                      ) -> torch.Tensor:
         """(B*N, D, Hs, Ws) depth probabilities of the current stereo
         features ``sf`` (B*N, Hs, Ws, Cs) against ``prev_sf``; zero without
-        a previous frame (depthnet.py:396-403)."""
+        a previous frame (depthnet.py:396-403).  ``static`` is the rig's
+        :func:`build_stream_cv_static`."""
         cfg = self.cfg
         bn, hs, ws, cs = sf.shape
         if prev_sf is None:
@@ -164,13 +186,14 @@ class DHDStereoNet(DHDNet):
             prev_sf.reshape(b, n, hs, ws, cs), sf.reshape(b, n, hs, ws, cs),
             self._cv_frustum, k2s, geom["intrins"], geom["post_rots"],
             geom["post_trans"], bias=cfg.depthnet_cfg.bias,
-            method=cfg.cv_method)
+            method=cfg.cv_method, static=static)
         return cv.reshape(bn, -1, hs, ws).to(self.dtype)
 
     def _frame(self, imgs: torch.Tensor, geom: Dict[str, torch.Tensor],
                prev_sf: Optional[torch.Tensor],
                k2s: Optional[torch.Tensor],
-               plan: Optional[PoolPlan] = None):
+               plan: Optional[PoolPlan] = None,
+               cv_static: Optional[Dict[str, Any]] = None):
         """One processed frame: encoder, cost volume, MGHS transform and
         pre-process nets.  imgs (B, N, H, W, 3); returns the transform's
         outputs with its grids pre-processed, and the frame's stereo
@@ -181,7 +204,7 @@ class DHDStereoNet(DHDNet):
         sf = cv = None
         if self.cfg.stereo:
             sf = sfeat.permute(0, 2, 3, 1).contiguous()
-            cv = self._cost_volume(prev_sf, sf, k2s, geom, b, n)
+            cv = self._cost_volume(prev_sf, sf, k2s, geom, b, n, cv_static)
         out = self.img_view_transformer(
             x.reshape((b, n) + x.shape[1:]), geom, plan, cv)
         out["bev"], out["vox"] = self._pre_process(out["bev"], out["vox"])
@@ -233,7 +256,8 @@ class DHDStereoNet(DHDNet):
                                                            cam2global)
         out, sf = self._frame(
             _as_tensor(batch["imgs"], self.device, self.dtype), geom,
-            cache.get("stereo_feat"), k2s, batch.get("pool_plan"))
+            cache.get("stereo_feat"), k2s, batch.get("pool_plan"),
+            batch.get("cv_static"))
         bev, vox = out["bev"], out["vox"]
 
         if cache.get("bev") is None:

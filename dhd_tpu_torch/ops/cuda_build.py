@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "dhd_tpu_torch"
-SOURCES = ("mghs_pool", "cost_volume", "layer_norm",
+SOURCES = ("mghs_pool", "segment_sum", "cost_volume", "layer_norm",
            "window_attention")            # every csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -12,6 +12,10 @@ The fine-voxel layout is z-minor (seg = pillar * Dz + z), so the pooled
 grid comes out (B, Dy, Dx, Dz, C) and sorting by voxel id also sorts by
 BEV pillar — one sort feeds both outputs of the CUDA kernel
 (:mod:`dhd_tpu_torch.ops.mghs_pool_cuda`).
+
+:func:`bev_pool` and :func:`bev_pool_v2` keep the reference's legacy
+pooling API; their sums are :func:`~dhd_tpu_torch.ops.segment_sum.
+segment_sum_pooling` (kernel B2 on the GPU).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Tuple
 import torch
 
 from dhd_tpu_torch.config import ViewTransformConfig
+from dhd_tpu_torch.ops.segment_sum import segment_sum_pooling
 
 
 def _trunc_index(coord: torch.Tensor, lower: float, interval: float
@@ -169,3 +174,61 @@ def build_pool_plan(idx: PoolIndices, vt: ViewTransformConfig,
     return PoolPlan(dix_s=dix_s.to(torch.int32), z_s=z_s.to(torch.int32),
                     starts=starts, grid=(b, vt.y.size, vt.x.size, dz),
                     band_edges=(s1, s1 + s2))
+
+
+def bev_pool(feats: torch.Tensor, coords: torch.Tensor, b: int, dz: int,
+             dy: int, dx: int, pool: str = "sum") -> torch.Tensor:
+    """The reference's legacy bev_pool (v1) API (ops/bev_pool/bev_pool.py:
+    6-126): counterpart of ``dhd_tpu/ops/voxel_pool.py:bev_pool``.
+
+    Args:
+      feats: (P, C) point features.
+      coords: (P, 4) int (x, y, z, batch) voxel coordinates; points outside
+        the grid are dropped.
+      pool: 'sum' (kernel B2 on the GPU) or 'max' (empty voxels 0).
+    Returns:
+      (B, C, Dz, Dy, Dx) pooled grid in feats.dtype.
+    """
+    c = feats.shape[-1]
+    x, y, z, bi = coords.long().unbind(-1)
+    valid = ((x >= 0) & (x < dx) & (y >= 0) & (y < dy)
+             & (z >= 0) & (z < dz) & (bi >= 0) & (bi < b))
+    num_seg = b * dz * dy * dx
+    seg = torch.where(valid, ((bi * dz + z) * dy + y) * dx + x, num_seg)
+    if pool == "sum":
+        out = segment_sum_pooling(feats, seg, num_seg)
+    elif pool == "max":
+        out = torch.full((num_seg + 1, c), float("-inf"), dtype=feats.dtype,
+                         device=feats.device)
+        out = out.scatter_reduce(0, seg[:, None].expand(-1, c), feats,
+                                 "amax")[:-1]
+        out = torch.where(torch.isneginf(out), 0.0, out)
+    else:
+        raise ValueError(pool)
+    return out.reshape(b, dz, dy, dx, c).permute(0, 4, 1, 2, 3)
+
+
+def bev_pool_v2(depth: torch.Tensor, feat: torch.Tensor,
+                ranks_depth: torch.Tensor, ranks_feat: torch.Tensor,
+                ranks_bev: torch.Tensor,
+                bev_feat_shape: Tuple[int, int, int, int, int]
+                ) -> torch.Tensor:
+    """The reference's ``bev_pool_v2`` API (ops/bev_pool_v2/bev_pool.py:
+    86-106): ``out[ranks_bev[i]] += depth.flat[ranks_depth[i]] *
+    feat.rows[ranks_feat[i]]``; counterpart of
+    ``dhd_tpu/ops/voxel_pool.py:bev_pool_v2``.  Ranks need not be sorted;
+    the sum is :func:`segment_sum_pooling`, so depth and feat get
+    gradients.
+
+    Args:
+      depth: (B, N, D, fH, fW); feat: (B, N, fH, fW, C).
+      ranks_*: (P,) int index arrays.
+      bev_feat_shape: (B, Dz, Dy, Dx, C).
+    Returns:
+      (B, Dz, Dy, Dx, C) pooled grid, channels-last.
+    """
+    b, dz, dy, dx, c = bev_feat_shape
+    vals = (depth.reshape(-1)[ranks_depth.long(), None]
+            * feat.reshape(-1, feat.shape[-1])[ranks_feat.long()])
+    out = segment_sum_pooling(vals, ranks_bev, b * dz * dy * dx)
+    return out.reshape(b, dz, dy, dx, c)

@@ -1,0 +1,111 @@
+"""Profiling helpers built on ``torch.profiler``: counterpart of
+``dhd_tpu/profiling.py``, with the same three functions and the same
+return shape.
+
+A traced run gives each named range's time per execution (the ranges are
+``torch.profiler.record_function`` blocks of the traced code) and the time
+per CUDA kernel name.  On a GPU these are device times from the CUDA
+activity; a run on the CPU has no device, and then the numbers are the
+host's, which the result says under ``clock``.
+"""
+from __future__ import annotations
+
+import re
+from collections import defaultdict
+from typing import Callable, Dict, Optional
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+_TEMPLATE = re.compile(r"<[^<>]*>")
+
+
+def _kernel_key(name: str, collapse: bool) -> str:
+    """A kernel's name without its parameter list; with ``collapse`` also
+    without template arguments, so instantiations of one kernel sum
+    together."""
+    key = name.replace("(anonymous namespace)::", "")
+    if collapse:
+        while _TEMPLATE.search(key):
+            key = _TEMPLATE.sub("", key)
+    key = key.split("(")[0].strip()
+    return key.removeprefix("void ") or name[:40]
+
+
+def trace_device(run: Callable[[], None], device: torch.device,
+                 collapse: bool = True) -> Dict:
+    """Run ``run()`` under ``torch.profiler`` and sum its activity on
+    ``device`` (a CUDA device, or the CPU).
+
+    Returns a dict:
+      modules: {range name: [ms, ...]} one entry per execution of each
+        ``record_function`` range, in time order (device span of the range
+        on a GPU).
+      ops: {kernel name: total ms}; op_events: {kernel name: count}.
+      op_hlo: {kernel name: full signature}, only with ``collapse=False``
+        (then template arguments stay in the names, so instantiations stay
+        apart).
+      clock: 'device' for CUDA device times, 'host' for a CPU-only run.
+    """
+    on_gpu = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_gpu else [])
+    with profile(activities=activities) as prof:
+        run()
+        if on_gpu:
+            torch.cuda.synchronize()
+    events = prof.events()
+    kind = DeviceType.CUDA if on_gpu else DeviceType.CPU
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    # a range shows on the device as its span, under the range's name
+    ranges = {e.name for e in events if e.device_type == DeviceType.CPU
+              and getattr(e, "is_user_annotation", False)}
+    if on_gpu:
+        ranges |= cpu_names & {e.name for e in events
+                               if e.device_type == kind}
+
+    modules: Dict[str, list] = defaultdict(list)
+    ops: Dict[str, float] = defaultdict(float)
+    op_events: Dict[str, int] = defaultdict(int)
+    op_hlo: Dict[str, str] = {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.device_type != kind:
+            continue
+        if e.name in ranges:
+            modules[e.name].append(e.time_range.elapsed_us() / 1e3)
+        elif on_gpu and e.name not in cpu_names:       # a kernel or a copy
+            key = _kernel_key(e.name, collapse)
+            ops[key] += e.time_range.elapsed_us() / 1e3
+            op_events[key] += 1
+            if not collapse:
+                op_hlo.setdefault(key, e.name)
+    if not on_gpu:
+        # no device: the host's self time of each operator
+        for e in prof.key_averages():
+            if e.key not in ranges:
+                ops[e.key] += e.self_cpu_time_total / 1e3
+                op_events[e.key] += e.count
+    return {"modules": dict(modules), "ops": dict(ops),
+            "op_events": dict(op_events), "op_hlo": op_hlo,
+            "clock": "device" if on_gpu else "host"}
+
+
+def module_ms(prof: Dict, name_substr: str, drop_first: int = 0
+              ) -> Optional[float]:
+    """Mean ms per execution of the range whose name contains
+    ``name_substr`` (e.g. 'step'), optionally dropping warm-up runs."""
+    for name, durs in prof["modules"].items():
+        if name_substr in name:
+            durs = durs[drop_first:] if len(durs) > drop_first else durs
+            if durs:
+                return sum(durs) / len(durs)
+    return None
+
+
+def top_ops(prof: Dict, n: int = 25):
+    """[(kernel name, total ms, count)] sorted by total time."""
+    rows = [(k, v, prof["op_events"].get(k, 0))
+            for k, v in prof["ops"].items()]
+    rows.sort(key=lambda r: -r[1])
+    return rows[:n]

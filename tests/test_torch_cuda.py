@@ -13,6 +13,8 @@ from dhd_tpu_torch.ops import (build_cv_plan, build_pool_plan,
                                compute_pool_indices, cv_cost_plain,
                                fused_layer_norm_cuda, layer_norm_plain,
                                mghs_pool_cuda, mghs_pool_plan_plain,
+                               segment_sum_pooling, sorted_segment_sum,
+                               sorted_segment_sum_plain,
                                stereo_cost_volume_cuda, window_attention_cuda,
                                window_attention_plain)
 
@@ -261,3 +263,89 @@ def test_window_attention_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         window_attention_cuda(qkv.half(), bias.half(), mask.half(), 2)
     assert window_attention_cuda.launches == before
+
+
+def _segsum_inputs(dev, dtype, c, layout="uniform", p=20000, v=9000, seed=8):
+    """Unsorted values and ids: uniform over 1.5 V, with 10% of the points
+    on one id, or with negative ids."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, int(1.5 * v), p)
+    if layout == "hot":
+        seg[: p // 10] = v // 3
+    elif layout == "negative":
+        seg = rng.integers(-v // 2, v + v // 2, p)
+    vals = torch.tensor(rng.normal(0, 1, (p, c)), dtype=dtype, device=dev)
+    return vals, torch.tensor(seg, dtype=torch.int32, device=dev), v
+
+
+@pytest.mark.parametrize("dtype,out_dtype,c,layout", [
+    (torch.bfloat16, torch.bfloat16, 64, "uniform"),
+    (torch.bfloat16, torch.float32, 64, "hot"),
+    (torch.float32, torch.float32, 64, "negative"),
+    (torch.float32, torch.bfloat16, 8, "uniform"),
+    (torch.bfloat16, torch.bfloat16, 96, "hot"),
+    (torch.bfloat16, torch.bfloat16, 160, "negative"),
+    (torch.float32, torch.float32, 256, "uniform"),
+    (torch.bfloat16, torch.bfloat16, 7, "hot")])
+def test_segment_sum_kernel_matches_plain(cuda, dtype, out_dtype, c, layout):
+    """B2 against its plain version on the same sorted rows: fp32 out
+    within 2^-20 of the summed |terms|, bf16 out within one bf16 ulp of
+    the result plus that; empty segments exactly 0; the unsorted entry
+    (the kernel gathering the rows itself) gives the same sums bit for
+    bit."""
+    vals, seg, v = _segsum_inputs(cuda, dtype, c, layout)
+    seg_s, order = torch.sort(seg, stable=True)
+    vals_s = vals[order].contiguous()
+    before = sorted_segment_sum.launches
+    got = sorted_segment_sum(vals_s, seg_s, v, out_dtype)
+    assert sorted_segment_sum.launches == before + 1
+    want = sorted_segment_sum_plain(vals_s, seg_s, v, out_dtype)
+    terms = sorted_segment_sum_plain(vals_s.abs(), seg_s, v)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (v, c)
+    wf = want.float()
+    ulp = (torch.where(wf == 0, 0.0,
+                       torch.exp2(torch.floor(torch.log2(wf.abs())) - 7))
+           if out_dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - wf).abs() <= ulp + 2.0 ** -20 * terms).all())
+    keep = seg[(seg >= 0) & (seg < v)].long()
+    empty = torch.bincount(keep, minlength=v) == 0
+    assert bool(empty.any()) and bool((got[empty] == 0).all())
+    if out_dtype == dtype:
+        unsorted = segment_sum_pooling(vals, seg, v)
+        assert sorted_segment_sum.launches == before + 2
+        assert torch.equal(unsorted, got)
+
+
+def test_segment_sum_kernel_gradient(cuda):
+    """The unsorted entry's backward on the card: a gather of the output
+    gradient, zero for dropped ids."""
+    vals, seg, v = _segsum_inputs(cuda, torch.float32, 16, "negative")
+    x = vals.clone().requires_grad_(True)
+    out = segment_sum_pooling(x, seg, v)
+    (out ** 2).sum().backward()
+    keep = (seg >= 0) & (seg < v)
+    want = torch.where(keep[:, None], 2 * out.detach()[
+        seg.clamp(0, v - 1).long()], 0.0)
+    torch.testing.assert_close(x.grad, want, rtol=0, atol=0)
+
+
+def test_segment_sum_kernel_rejects_bad_inputs(cuda):
+    vals, seg, v = _segsum_inputs(cuda, torch.float32, 8)
+    seg_s, _ = torch.sort(seg)
+    before = sorted_segment_sum.launches
+    with pytest.raises(ValueError, match="seg_sorted"):
+        sorted_segment_sum(vals, seg_s.long(), v)
+    with pytest.raises(ValueError, match="vals"):
+        sorted_segment_sum(vals.t(), seg_s, v)
+    with pytest.raises(ValueError, match="rows"):
+        sorted_segment_sum(vals[:-1].contiguous(), seg_s, v)
+    with pytest.raises(ValueError, match="order"):
+        sorted_segment_sum(vals, seg_s, v, order=seg_s[:-1])
+    with pytest.raises(ValueError, match="too large"):
+        sorted_segment_sum(vals, seg_s, 2 ** 28)
+    with pytest.raises(TypeError):
+        sorted_segment_sum(vals.half(), seg_s, v)
+    with pytest.raises(TypeError):
+        sorted_segment_sum(vals, seg_s, v, torch.float16)
+    assert sorted_segment_sum.launches == before

@@ -21,6 +21,9 @@ def _imports(path):
 def test_port_sources_found():
     assert len(SOURCES) > 10
     assert all(p.exists() for p in SOURCES)
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {"dhd_tpu_torch/cli/benchmark.py", "dhd_tpu_torch/profiling.py",
+            "dhd_tpu_torch/ops/segment_sum.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
