@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's DHD-M streaming phase (latency, device busy time,
-host syncs and the cost-volume stage's trace reading) against the
-``dhd_tpu_torch`` package of another checkout, to compare two trees on one
-card.
+"""Run phases of chip_smoke.py against the ``dhd_tpu_torch`` package of
+another checkout, to compare two trees on one card.
 
-    python3 chip_ab.py DIR
+    python3 chip_ab.py DIR [WHAT ...]
 
 DIR is the root of a checkout (for example a ``git archive`` of the parent
-commit unpacked under ``build/``).  Run it once per tree in one session, in
-the order parent, change, change, parent.
+commit unpacked under ``build/``).  WHAT names the phases, by default
+``stream``:
+
+- ``stream``: DHD-M streaming (latency, device busy time, host syncs and
+  the cost-volume stage's trace reading), phase 7;
+- ``dhd_l``: DHD-L streaming, phase 12 (the backbone's stage ms);
+- ``kernels``: window attention (B4) and LayerNorm (B5) against their plain
+  versions and the library calls at DHD-L's shapes, phases 9 and 10.
+
+Run it once per tree on one card, in the order parent, change, change,
+parent.
 """
+import collections
 import importlib.util
 import pathlib
 import sys
 import time
 
+WHAT = ("stream", "dhd_l", "kernels")
+
 
 def main() -> int:
     tree = pathlib.Path(sys.argv[1]).resolve()
+    what = sys.argv[2:] or ["stream"]
+    if any(w not in WHAT for w in what):
+        print(f"chip_ab: WHAT must be among {WHAT}, got {what}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parent / "chip_smoke.py")
@@ -34,11 +49,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    cuda_build.build(cuda_build.SOURCES)
+    logs = cuda_build.build(cuda_build.SOURCES)
+    ptxas = {name: smoke.ptxas_lines(log) for name, log in logs.items()}
     print(f"package {pathlib.Path(dhd_tpu_torch.__file__).parent}; built "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    kernels = {"mghs_pool_cuda": {}, "stereo_cost_volume_cuda": {}}
-    smoke.phase_stream(torch.device("cuda"), kernels, smoke.smi_name_power())
+    dev, card = torch.device("cuda"), smoke.smi_name_power()
+    kernels = collections.defaultdict(dict)
+    for w in what:
+        if w == "stream":
+            smoke.phase_stream(dev, kernels, card)
+        elif w == "dhd_l":
+            smoke.phase_stream(dev, kernels, card, "dhd_l")
+        else:
+            print(card, flush=True)
+            smoke.phase_attention(dev, kernels, ptxas)
+            smoke.phase_layer_norm(dev, kernels, ptxas)
     return 0
 
 

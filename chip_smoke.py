@@ -39,11 +39,17 @@ Phases, one line each; any failure raises and exits non-zero:
    unshifted, bf16 unit-normal qkv and bias, within 4 bf16 ulps of the
    output's peak (the bar the TPU kernel held against XLA), and at one
    shape JAX sends to its v1 kernel (3 heads of 32); kernel, plain and
-   ``F.scaled_dot_product_attention`` ms, the bound, ptxas's registers;
+   ``F.scaled_dot_product_attention`` ms, kernel/SDPA, the bound and its
+   share of the kernel's time, the launch-weighted ms per DHD-L frame,
+   ptxas's registers and shared memory; kernel and SDPA are read twice,
+   by device time and on an idle device with the host's work before the
+   launch, and their host microseconds per call are printed beside;
 10. kernel vs plain: ``fused_layer_norm_cuda`` (B5) at every (rows, C) of
    DHD-L's 54 LayerNorms, bf16, each element within one bf16 ulp plus
    2^-20 of the terms it is computed from; kernel, plain and
-   ``F.layer_norm`` ms and the bound;
+   ``F.layer_norm`` ms, kernel/library, the bound and its share, the
+   launch-weighted ms per frame, ptxas's report; both readings and the
+   host's microseconds per call, as in phase 9;
 11. B3 and B1 again at DHD-L shapes (C=128 stereo features at 128x352; the
    streamed DHD-L frame's plan);
 12. streaming serving: DHD-L at full width (Swin-B, 512x1408) in bf16, a
@@ -117,6 +123,7 @@ PHASE_OF = {"dhd_s": {"pool": 2}, "dhd_m": {"pool": 6, "cv": 5,
                                             "stream": 7},
             "dhd_l": {"pool": 11, "cv": 11, "stream": 12}}
 SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
+SLEEP_CYCLES = 2_000_000    # ~1 ms of device clock ahead of each timed call
 
 
 def check(ok: bool, msg: str) -> None:
@@ -144,20 +151,61 @@ def ptxas_lines(log: str) -> list:
     return [f"{k}: {', '.join(v)}" for k, v in found.items()]
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+def short_ptxas(lines: list, kernel: str) -> list:
+    """The ptxas lines of ``kernel``'s instantiations, each named by its
+    template arguments (``<32, 9>``, ``<13__nv_bfloat16, 256, 1>``)."""
+    out = []
+    for ln in lines:
+        m = re.match(rf".*{kernel}I(.*?)EEvP.*?: (.*)", ln)
+        if m:
+            args = re.sub(r"Li(\d+)E?", r", \1", m.group(1)).strip(", ")
+            out.append(f"<{args}>: {m.group(2)}")
+    return out
+
+
+def time_ms(fn, iters: int = 30, warmup: int = 3, busy: bool = True
+            ) -> float:
+    """Median time of one call, by CUDA events around each call.  With
+    ``busy`` a sleep kernel ahead of the start event keeps the device busy
+    while the host enqueues the call, so the time between the events is
+    the device's alone.  Without it the device idles until the call's
+    first kernel arrives, and the time also holds the host's work before
+    that launch (the wrapper's Python, the dispatch, the launch itself)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        else:
+            torch.cuda.synchronize()
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Host time of one call in microseconds, from its start to its
+    return, with the device kept busy by a sleep kernel so that the call
+    never waits for it: what the call costs the host per launch.  The
+    least of ``iters`` calls, its own cost: the median follows whatever
+    else the machine's shared cores run (2-5x between runs on one card)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * min(times)
 
 
 def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -666,18 +714,65 @@ def swin_stage_shapes(cfg):
 def time_kernel_and_plain(kern, label, run, plain, library, nbytes, flops,
                           flop_rate, err, frame_count):
     """Times of a kernel (``run``), its plain version and the library call
-    on one shape, the shape's bound, under ``kern["shapes"][label]``."""
+    on one shape, the shape's bound, under ``kern["shapes"][label]``: the
+    device's time (``ms``, ``library_ms``), the time on an idle device
+    with the host's work before the launch (``*_with_host``) and the
+    host's microseconds per call (``host_us``, ``library_host_us``)."""
     ms = time_ms(run)
     plain_ms = time_ms(plain, iters=10, warmup=2)
     library_ms = time_ms(library)
+    ms_host = time_ms(run, busy=False)
+    library_ms_host = time_ms(library, busy=False)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    bound_ms = 1e3 * max(t_bytes, t_ops)
     kern["shapes"][label] = measured = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "per_frame": frame_count}
+        "per_frame": frame_count, "vs_library": ms / library_ms,
+        "bound_share": bound_ms / ms, "ms_with_host": ms_host,
+        "library_ms_with_host": library_ms_host,
+        "vs_library_with_host": ms_host / library_ms_host,
+        "host_us": host_us(run), "library_host_us": host_us(library)}
     kern["max_abs_err"] = max(kern["max_abs_err"], err)
     return measured
+
+
+def timing_line(m, library: str) -> str:
+    """A shape's kernel and library times, both readings, for a phase."""
+    return (f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+            f"{library} {m['library_ms']:.4f} ms (kernel/{library} "
+            f"{m['vs_library']:.3f}); with the host's work on an idle "
+            f"device kernel {m['ms_with_host']:.4f} ms, {library} "
+            f"{m['library_ms_with_host']:.4f} ms (kernel/{library} "
+            f"{m['vs_library_with_host']:.3f}); least host time per call "
+            f"kernel {m['host_us']:.1f} us, {library} "
+            f"{m['library_host_us']:.1f} us; bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_share']:.3f} of the kernel's device time; "
+            f"{m['bound_by']}")
+
+
+def per_frame_summary(kern) -> str:
+    """Launch-weighted kernel and library ms per DHD-L frame over a
+    kernel's shapes, under both readings, and the shapes where the kernel
+    beats the library."""
+    shapes = kern["shapes"].values()
+    frame = {k: sum(m["per_frame"] * m[k] for m in shapes)
+             for k in ("ms", "library_ms", "bound_ms", "ms_with_host",
+                       "library_ms_with_host", "host_us",
+                       "library_host_us")}
+    wins = sum(m["ms"] < m["library_ms"] for m in shapes)
+    wins_host = sum(m["ms_with_host"] < m["library_ms_with_host"]
+                    for m in shapes)
+    return (f"per DHD-L frame (launch-weighted) kernel {frame['ms']:.3f} ms, "
+            f"library {frame['library_ms']:.3f} ms, bound "
+            f"{frame['bound_ms']:.3f} ms; with the host's work kernel "
+            f"{frame['ms_with_host']:.3f} ms, library "
+            f"{frame['library_ms_with_host']:.3f} ms; least host time "
+            f"kernel {frame['host_us'] / 1e3:.3f} ms, library "
+            f"{frame['library_host_us'] / 1e3:.3f} ms; kernel faster than "
+            f"the library at {wins} of {len(kern['shapes'])} shapes by "
+            f"device time, at {wins_host} with the host's work")
 
 
 def phase_attention(dev, kernels, ptxas):
@@ -706,7 +801,6 @@ def phase_attention(dev, kernels, ptxas):
         "replaces": "dhd_tpu/ops/window_attention.py:74",
         "also_replaces": "dhd_tpu/ops/window_attention.py:48",
         "launches": None, "max_abs_err": 0.0, "shapes": {}}
-    frame_ms = 0.0
     for label, hp, wp, c, heads, per_frame in cases:
         n_img = (hp // ws) * (wp // ws)
         w, hd = bn * n_img, c // heads
@@ -741,24 +835,24 @@ def phase_attention(dev, kernels, ptxas):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=am, scale=hd ** -0.5),
             nbytes, flops, BF16_FLOP_PER_S, err, per_frame)
-        frame_ms += per_frame * m["ms"]
         print(f"phase 9 ok: window_attention_cuda vs plain at {label} "
               f"(W={w}, N={n}, C={c}, heads={heads}, hd={hd}, bf16): max "
               f"abs err {err:.3e}, {ulps:.2f} bf16 ulps of the peak "
               f"{float(out_p.float().abs().max()):.3f} (tol {ATTN_ULP_TOL});"
-              f" kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
-              f"SDPA {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-              f"({m['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-              f"GFLOP; on the CUDA cores in fp32 at least "
+              f" {timing_line(m, 'SDPA')}, {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP; on the CUDA cores in fp32 at least "
               f"{1e3 * flops / FP32_FLOP_PER_S:.4f} ms); {per_frame} per "
               f"DHD-L frame", flush=True)
         del qkv, out_k, out_p, q, k, v, am
     kern.update({key: kern["shapes"]["stage2_shifted"][key]
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")})
-    print(f"phase 9: window_attention_cuda per DHD-L frame (launch-weighted "
-          f"kernel ms) {frame_ms:.3f} ms; ptxas: "
-          + "; ".join(ptxas.get("window_attention", [])), flush=True)
+    # <hd, key tiles>: q, k, v, rows padded to hd + 8 bf16
+    print(f"phase 9: window_attention_cuda {per_frame_summary(kern)}; "
+          "ptxas of the bf16 kernel <hd, most 16-key tiles> (dynamic shared "
+          "memory: 3 x 16 x tiles x (hd + 8) bf16): "
+          + "; ".join(short_ptxas(ptxas.get("window_attention", []),
+                                  "window_attention_mma_kernel")), flush=True)
 
 
 def phase_layer_norm(dev, kernels, ptxas):
@@ -783,7 +877,6 @@ def phase_layer_norm(dev, kernels, ptxas):
         "replaces": "dhd_tpu/ops/layer_norm.py:40",
         "launches": None, "max_abs_err": 0.0, "shapes": {}}
     g = torch.Generator(device=dev).manual_seed(10)
-    frame_ms = 0.0
     for (rows, c), per_frame in counts.items():
         label = f"{rows}x{c}"
         x = (3 * torch.randn((rows, c), generator=g, device=dev) + 0.5
@@ -807,23 +900,20 @@ def phase_layer_norm(dev, kernels, ptxas):
             lambda: layer_norm_plain(x, w, b),
             lambda: torch.nn.functional.layer_norm(x, (c,), w16, b16, 1e-6),
             nbytes, LN_FLOPS * x.numel(), FP32_FLOP_PER_S, err, per_frame)
-        frame_ms += per_frame * m["ms"]
         print(f"phase 10 ok: fused_layer_norm_cuda vs plain at {label} bf16:"
               f" max abs err {err:.3e}, max {ulps} bf16 ulps, {share:.3f} "
-              f"of the tolerance (1 bf16 ulp + 2^-20 of the terms); kernel "
-              f"{m['ms']:.4f} ms, plain "
-              f"{m['plain_ms']:.4f} ms, F.layer_norm {m['library_ms']:.4f} "
-              f"ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}, "
-              f"{nbytes / 1e6:.1f} MB); {per_frame} per DHD-L frame",
-              flush=True)
+              f"of the tolerance (1 bf16 ulp + 2^-20 of the terms); "
+              f"{timing_line(m, 'F.layer_norm')}, {nbytes / 1e6:.1f} MB); "
+              f"{per_frame} per DHD-L frame", flush=True)
     top = max(counts, key=counts.get)
     kern.update({key: kern["shapes"][f"{top[0]}x{top[1]}"][key]
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")})
-    print(f"phase 10: fused_layer_norm_cuda per DHD-L frame "
-          f"({sum(counts.values())} launches, launch-weighted kernel ms) "
-          f"{frame_ms:.3f} ms; ptxas: "
-          + "; ".join(ptxas.get("layer_norm", [])), flush=True)
+    print(f"phase 10: fused_layer_norm_cuda ({sum(counts.values())} "
+          f"launches) {per_frame_summary(kern)}; ptxas <type, lanes per row, "
+          "chunks per lane>: "
+          + "; ".join(short_ptxas(ptxas.get("layer_norm", []),
+                                  "layer_norm_kernel")), flush=True)
 
 
 def stream_kernels(cfg) -> dict:

@@ -12,12 +12,15 @@ eps 1e-5.  The two differ only in the order of the fp32 row sums.
 Bound on an H100: bytes.  A Swin-B LayerNorm reads and writes its rows
 once in bf16 (a DHD-L stage-2 block LN, 16,896 x 512, moves 34.6 MB:
 0.010 ms at 3.35 TB/s); its ~8 flops per element are far below the
-compute roof.  Design (see the source): one warp per row, 16-byte loads,
-the row held in registers between the statistics and the write.
+compute roof.  Design (see the source): persistent blocks walk the rows,
+each lane holding one 16-byte chunk of a row (C/8 lanes per row in bf16)
+and its weight and bias in registers for the whole walk, the next row's
+chunk loaded while the current row is reduced.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,6 +30,15 @@ _FN = {torch.bfloat16: "layer_norm_bf16", torch.float32: "layer_norm_f32"}
 _MAX_C = 2048
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The kernel's C entry for ``dtype``, its ctypes signature set once."""
+    fn = getattr(load("layer_norm"), _FN[dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -57,9 +69,9 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     CPU takes the plain version.  ``fused_layer_norm_cuda.launches`` counts
     kernel launches.
     """
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, eps)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return layer_norm_plain(x, weight, bias, eps)
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _FN:
         raise TypeError(f"fused_layer_norm_cuda takes bf16 or fp32, not "
@@ -70,27 +82,25 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
                          f"{_MAX_C}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x: want a contiguous, 16-byte aligned tensor")
+    index = x.get_device()
     for name, t in (("weight", weight), ("bias", bias)):
-        if t.dtype != torch.float32 or t.device != x.device \
-                or tuple(t.shape) != (c,) or not t.is_contiguous() \
+        if t.dtype != torch.float32 or t.get_device() != index \
+                or t.shape != (c,) or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: want a contiguous, 16-byte aligned "
                              f"fp32 ({c},) on "
                              f"{x.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    rows = x.numel() // c
-    if x.numel() >= 2 ** 31:
+    n = x.numel()
+    if n >= 2 ** 31:
         raise ValueError("x too large for int32 indices")
     out = torch.empty_like(x)
-    if rows == 0:
+    if n == 0:
         return out
 
-    fn = getattr(load("layer_norm"), _FN[x.dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), rows, c, float(eps),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = _entry(x.dtype)(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                          out.data_ptr(), n // c, c, eps,
+                          torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error "
                            f"{err}")

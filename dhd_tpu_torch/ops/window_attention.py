@@ -23,9 +23,9 @@ Bound on an H100: bytes.  Each launch reads qkv once and writes the
 output once, W·N·8C bytes in bf16 (DHD-L stage 0: 292 MB, 0.087 ms at
 3.35 TB/s); its 4·N²·hd flops per (window, head) are 21 GFLOP at stage 0,
 0.021 ms on the tensor cores.  In bf16 the kernel runs both products on
-the tensor cores (wmma) with the scores in a shared-memory strip; in fp32
-(the small configurations checked against the CPU) it runs on the CUDA
-cores.  Design: see the source.
+the tensor cores (``mma.sync``) with the scores in registers, a block per
+(head, window) pair; in fp32 (the small configurations checked against
+the CPU) it runs on the CUDA cores.  Design: see the source.
 """
 from __future__ import annotations
 
@@ -51,6 +51,15 @@ def attention_scale(hd: int, dtype: torch.dtype) -> float:
     scalar in ``q * scale`` (0.1767578125 for hd=32 in bf16, not
     0.17677669...)."""
     return float(torch.tensor(hd ** -0.5, dtype=dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The kernel's C entry for ``dtype``, its ctypes signature set once."""
+    fn = getattr(load("window_attention"), _FN[dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -94,13 +103,13 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     CPU takes the plain version.  ``window_attention_cuda.launches`` counts
     kernel launches.
     """
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, mask, heads)
-    if qkv.device.type != "cuda":
+    if not qkv.is_cuda:
+        if qkv.device.type == "cpu":
+            return window_attention_plain(qkv, bias, mask, heads)
         raise ValueError(f"unsupported device {qkv.device}")
-    if qkv.dtype not in _FN:
-        raise TypeError(f"window_attention_cuda takes bf16 or fp32, not "
-                        f"{qkv.dtype}")
+    dt = qkv.dtype
+    if dt not in _FN:
+        raise TypeError(f"window_attention_cuda takes bf16 or fp32, not {dt}")
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"qkv: want (W, N, 3C), got {tuple(qkv.shape)}")
     w, n, c3 = qkv.shape
@@ -109,34 +118,30 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     if hd not in _HEAD_DIMS or not 0 < n <= _MAX_N:
         raise ValueError(f"unsupported shape: C={c}, heads={heads}, N={n}; "
                          f"want C/heads in {_HEAD_DIMS} and N <= {_MAX_N}")
+    index = qkv.get_device()
     n_img = 0 if mask is None else mask.shape[0]
-    checks = [("qkv", qkv, (w, n, c3)), ("bias", bias, (heads, n, n))]
-    if mask is not None:
-        checks.append(("mask", mask, (n_img, n, n)))
-        if n_img == 0 or w % n_img:
-            raise ValueError(f"mask: W={w} is not a multiple of "
-                             f"nW_img={n_img}")
+    checks = (("qkv", qkv, (w, n, c3)), ("bias", bias, (heads, n, n)),
+              ("mask", mask, (n_img, n, n)))
     for name, t, shape in checks:
-        if t.dtype != qkv.dtype or t.device != qkv.device \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous {qkv.dtype} "
-                             f"{shape} on {qkv.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t is not None and (t.dtype != dt or t.get_device() != index
+                              or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: want a contiguous {dt} {shape} on "
+                             f"{qkv.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    if mask is not None and (n_img == 0 or w % n_img):
+        raise ValueError(f"mask: W={w} is not a multiple of nW_img={n_img}")
     if qkv.data_ptr() % 16:     # the bf16 kernel loads 16-byte chunks
         raise ValueError("qkv: want a 16-byte aligned tensor")
     if max(qkv.numel(), w * heads) >= 2 ** 31:
         raise ValueError("qkv too large for int32 indices")
-    out = torch.empty((w, n, c), dtype=qkv.dtype, device=qkv.device)
+    out = qkv.new_empty((w, n, c))
     if out.numel() == 0:
         return out
 
-    fn = getattr(load("window_attention"), _FN[qkv.dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(qkv.data_ptr(), bias.data_ptr(),
-             0 if mask is None else mask.data_ptr(), out.data_ptr(),
-             w, n, c, heads, n_img, attention_scale(hd, qkv.dtype),
-             torch.cuda.current_stream(qkv.device).cuda_stream)
+    err = _entry(dt)(qkv.data_ptr(), bias.data_ptr(),
+                     0 if mask is None else mask.data_ptr(), out.data_ptr(),
+                     w, n, c, heads, n_img, attention_scale(hd, dt),
+                     torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -153,16 +153,14 @@ def _bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [8, 136, 512, 2048])
-def test_layer_norm_kernel_matches_plain(cuda, dtype, c):
-    """B5 against its plain version: fp32 within 1e-5; bf16 within one
-    bf16 ulp of each element plus 2^-20 (8 fp32 ulps) of the terms it is
-    computed from.  Only the order of the fp32 row sums differs, but where
-    (x - mu) * mul cancels against the bias the result is tiny, and an
-    fp32-level difference is many of its bf16 ulps."""
-    g = torch.Generator(device=cuda).manual_seed(c)
-    x = (3 * torch.randn((3, 77, c), generator=g, device=cuda) + 0.5
+def _check_layer_norm(cuda, dtype, rows, c, seed):
+    """B5 against its plain version on (rows, c): fp32 within 1e-5; bf16
+    within one bf16 ulp of each element plus 2^-20 (8 fp32 ulps) of the
+    terms it is computed from.  Only the order of the fp32 row sums
+    differs, but where (x - mu) * mul cancels against the bias the result
+    is tiny, and an fp32-level difference is many of its bf16 ulps."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (3 * torch.randn(rows + (c,), generator=g, device=cuda) + 0.5
          ).to(dtype)
     w = 1 + 0.2 * torch.randn(c, generator=g, device=cuda)
     b = 0.5 * torch.randn(c, generator=g, device=cuda)
@@ -185,6 +183,27 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype, c):
         tol = ulp + 2.0 ** -20 * ((xf.abs() + mu.abs()) * mul + b.abs())
         assert bool(((got.float() - wf).abs() <= tol).all())
         assert float((_bf16_ulps(got, want) <= 1).float().mean()) > 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 136, 512, 2048])
+def test_layer_norm_kernel_matches_plain(cuda, dtype, c):
+    """B5 against its plain version on (3, 77, c); see _check_layer_norm."""
+    _check_layer_norm(cuda, dtype, (3, 77), c, seed=c)
+
+
+@pytest.mark.parametrize("rows,c", [
+    ((1001,), 128),          # two rows per warp, an odd row count
+    ((3,), 128),             # fewer rows than one block's first step
+    ((1, 5), 256),           # a warp per row, fewer rows than warps
+    ((4225,), 1024),         # 4 warps per row, rows not a multiple of 2
+    ((4231,), 2048),         # 8 warps per row, not a multiple of the grid
+    ((3, 700), 512)])        # 2 warps per row, 2,100 rows
+def test_layer_norm_kernel_edges(cuda, rows, c):
+    """B5 in bf16 where the persistent walk has a ragged end: rows that do
+    not fill the last step, a grid larger than the rows, and every width
+    of the row's lane group (16 lanes to 8 warps)."""
+    _check_layer_norm(cuda, torch.bfloat16, rows, c, seed=sum(rows) + c)
 
 
 def test_layer_norm_kernel_rejects_bad_inputs(cuda):
@@ -240,9 +259,55 @@ def test_window_attention_kernel_matches_plain(cuda, dtype, ws, heads, hd,
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
-        peak = want.float().abs().max()
-        ulp = 2.0 ** (torch.floor(torch.log2(peak)) - 7)
-        assert float((got.float() - want.float()).abs().max()) <= 4 * ulp
+        _check_attention_bf16(got, want)
+
+
+def _check_attention_bf16(got, want):
+    """bf16 within 4 bf16 ulps of the output's peak."""
+    peak = want.float().abs().max()
+    ulp = 2.0 ** (torch.floor(torch.log2(peak)) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= 4 * ulp
+
+
+def test_window_attention_kernel_odd_pairs(cuda):
+    """A block per (head, window) pair, head-major: an odd number of
+    windows (3 images of 1 x 5 windows, each with its own shift mask) and
+    of heads (5), so that a head's pairs and a mask's windows straddle
+    every boundary of the grid."""
+    heads, hd, ws = 5, 16, 4
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n, c = ws * ws, heads * hd
+    qkv = torch.randn((15, n, 3 * c), generator=g, device=cuda)
+    bias = torch.randn((heads, n, n), generator=g, device=cuda)
+    mask = torch.from_numpy(_shift_attn_mask(ws, 5 * ws, ws, ws // 2))
+    assert mask.shape[0] == 5
+    args = [t.to(cuda, torch.bfloat16) for t in (qkv, bias, mask)]
+    got = window_attention_cuda(*args, heads)
+    want = window_attention_plain(*args, heads)
+    torch.cuda.synchronize()
+    _check_attention_bf16(got, want)
+
+
+@pytest.mark.parametrize("shifted", [True, False])
+def test_window_attention_kernel_stage3_heads(cuda, shifted):
+    """Swin-B stage 3's layout: 32 heads of 32 (C = 1024), window 12."""
+    qkv, bias, mask = _attn_inputs(cuda, torch.bfloat16, 12, 32, 32, shifted)
+    got = window_attention_cuda(qkv, bias, mask, 32)
+    want = window_attention_plain(qkv, bias, mask, 32)
+    torch.cuda.synchronize()
+    _check_attention_bf16(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_kernel_zero_mask_is_no_mask(cuda, dtype):
+    """A (1, N, N) zero mask adds exact zeros: the same output as
+    ``mask=None``, bit for bit."""
+    qkv, bias, _ = _attn_inputs(cuda, dtype, 12, 4, 32, False)
+    zero = torch.zeros((1,) + bias.shape[1:], dtype=dtype, device=cuda)
+    before = window_attention_cuda.launches
+    got = window_attention_cuda(qkv, bias, zero, 4)
+    assert window_attention_cuda.launches == before + 1
+    assert torch.equal(got, window_attention_cuda(qkv, bias, None, 4))
 
 
 def test_window_attention_kernel_rejects_bad_inputs(cuda):
@@ -349,3 +414,43 @@ def test_segment_sum_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         sorted_segment_sum(vals, seg_s, v, torch.float16)
     assert sorted_segment_sum.launches == before
+
+
+def test_time_ms_counts_device_time_only(cuda):
+    """chip_smoke.time_ms reads the device's time of a call, not the
+    host's: a call that spends 0.3 ms on the host before one tiny launch
+    reads far below 0.3 ms (events around it on an idle card would wait
+    for the host, as they did before the sleep kernel ahead of them)."""
+    import time
+
+    import chip_smoke
+
+    x = torch.ones(1024, device=cuda)
+
+    def call():                 # a busy wait: sleep() may take far longer
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 3e-4:
+            pass
+        x.add_(1.0)
+
+    assert chip_smoke.time_ms(call, iters=10, warmup=2) < 0.1
+
+
+def test_time_ms_idle_counts_host_time(cuda):
+    """With ``busy=False`` chip_smoke.time_ms reads the call on an idle
+    device, the host's work before the launch included, and host_us the
+    host's time of the call alone."""
+    import time
+
+    import chip_smoke
+
+    x = torch.ones(1024, device=cuda)
+
+    def call():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 3e-4:
+            pass
+        x.add_(1.0)
+
+    assert chip_smoke.time_ms(call, iters=10, warmup=2, busy=False) > 0.25
+    assert chip_smoke.host_us(call, iters=10, warmup=2) > 250

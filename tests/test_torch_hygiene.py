@@ -7,7 +7,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "dhd_tpu")
 SOURCES = sorted((ROOT / "dhd_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_variants.py"]
 
 
 def _imports(path):

@@ -178,6 +178,25 @@ def test_window_attention_bf16_rounds_the_scale_first():
     assert np.mean(got == want) > 0.99
 
 
+@pytest.mark.parametrize("wrapper", ["attention", "layer_norm"])
+def test_wrappers_raise_off_the_cpu_and_cuda(wrapper):
+    """A wrapper takes its plain version only on a CPU tensor: on any
+    other device that is not CUDA it raises before it launches."""
+    meta = torch.device("meta")
+    if wrapper == "attention":
+        fn, args = window_attention_cuda, (
+            torch.empty((2, 16, 96), device=meta),
+            torch.empty((2, 16, 16), device=meta), None, 2)
+    else:
+        fn, args = fused_layer_norm_cuda, (
+            torch.empty((4, 64), device=meta),
+            torch.empty(64, device=meta), torch.empty(64, device=meta))
+    before = fn.launches
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        fn(*args)
+    assert fn.launches == before
+
+
 # ----------------------------------------------- permutations, index, mask
 
 @pytest.mark.parametrize("h,w,ws,shift", [
