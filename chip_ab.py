@@ -12,7 +12,11 @@ commit unpacked under ``build/``).  WHAT names the phases, by default
   the cost-volume stage's trace reading), phase 7;
 - ``dhd_l``: DHD-L streaming, phase 12 (the backbone's stage ms);
 - ``kernels``: window attention (B4) and LayerNorm (B5) against their plain
-  versions and the library calls at DHD-L's shapes, phases 9 and 10.
+  versions and the library calls at DHD-L's shapes, phases 9 and 10;
+- ``cv``: the stereo cost volume (B3) against its plain version at DHD-M
+  and DHD-L, phases 5 and 11;
+- ``segsum``: the sorted segment-sum (B2) against its plain version and
+  ``torch.segment_reduce`` at its cases, phase 14.
 
 Run it once per tree on one card, in the order parent, change, change,
 parent.
@@ -23,7 +27,7 @@ import pathlib
 import sys
 import time
 
-WHAT = ("stream", "dhd_l", "kernels")
+WHAT = ("stream", "dhd_l", "kernels", "cv", "segsum")
 
 
 def main() -> int:
@@ -60,6 +64,13 @@ def main() -> int:
             smoke.phase_stream(dev, kernels, card)
         elif w == "dhd_l":
             smoke.phase_stream(dev, kernels, card, "dhd_l")
+        elif w == "cv":
+            print(card, flush=True)
+            smoke.phase_cost_volume(dev, kernels, "dhd_m", ptxas)
+            smoke.phase_cost_volume(dev, kernels, "dhd_l", ptxas)
+        elif w == "segsum":
+            print(card, flush=True)
+            smoke.phase_segment_sum(dev, kernels, ptxas)
         else:
             print(card, flush=True)
             smoke.phase_attention(dev, kernels, ptxas)

@@ -19,7 +19,10 @@ Phases, one line each; any failure raises and exits non-zero:
 5. kernel vs plain: ``stereo_cost_volume_cuda`` (B3) against its plain
    version at DHD-M shapes (6 cameras, 88 depth bins, 64x176, 256 bf16
    channels after a ReLU) on a rig moving 0.5 m with a small yaw, bias 5:
-   softmaxed probabilities within atol 2e-5, rtol 1e-4;
+   softmaxed probabilities within atol 2e-5, rtol 1e-4; kernel and plain
+   ms, the bound and its share of the kernel's time, the wrapper's least
+   host microseconds per call, ptxas's registers, spills and shared
+   memory (the B1 phases print the host microseconds too);
 6. kernel vs plain: ``mghs_pool_cuda`` (B1) again at DHD-M shapes (the
    streamed frame's plan, 88 depth bins), within one bf16 ulp;
 7. streaming serving: DHD-M at full width in bf16 with seeded random
@@ -51,7 +54,7 @@ Phases, one line each; any failure raises and exits non-zero:
    launch-weighted ms per frame, ptxas's report; both readings and the
    host's microseconds per call, as in phase 9;
 11. B3 and B1 again at DHD-L shapes (C=128 stereo features at 128x352; the
-   streamed DHD-L frame's plan);
+   streamed DHD-L frame's plan), with the same readings;
 12. streaming serving: DHD-L at full width (Swin-B, 512x1408) in bf16, a
    bootstrap then 5 frames; per frame B1 and B3 once, B4 24 and B5 54
    times; one frame repeated with every plain version forced must agree
@@ -66,8 +69,9 @@ Phases, one line each; any failure raises and exits non-zero:
    summed |terms|, bf16 out within one bf16 ulp plus that, empty segments
    exactly 0, the unsorted entry (``segment_sum_pooling``) bit for bit the
    sorted one; kernel, plain and ``torch.segment_reduce`` ms, the
-   unsorted entry split into sort, row gather and kernel, the bound,
-   ptxas's registers;
+   unsorted entry split into sort, row gather and kernel, the bound and
+   its share of the kernel's time, the wrapper's least host microseconds
+   per call, ptxas's registers and spills of both of B2's launches;
 15. the benchmark CLI on the card, in-process through
    ``dhd_tpu_torch.cli.benchmark.main``: ``--what pool`` at DHD-S and
    DHD-L (B1 and B2 must launch), ``--what stream`` at DHD-M (its frames
@@ -285,6 +289,7 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
     ms = time_ms(lambda: mghs_pool_cuda(depth, feat, band_mask, plan))
     plain_ms = time_ms(
         lambda: mghs_pool_plan_plain(depth, feat, band_mask, plan))
+    call_us = host_us(lambda: mghs_pool_cuda(depth, feat, band_mask, plan))
 
     # least time: each input read once, each output written once; the
     # sorted-point work counts only the points inside the grid
@@ -308,7 +313,8 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
     measured = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "host_us": call_us}
     # the top-level numbers are DHD-S's, each shape's are under "shapes";
     # max_abs_err is the largest over the shapes
     kern = kernels.setdefault("mghs_pool_cuda", dict(
@@ -327,7 +333,8 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
           f"of one ulp plus 2^-20 of the terms; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}, "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); points per "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); least host "
+          f"time per call {call_us:.1f} us; points per "
           f"non-empty pillar: mean {mean_pts:.1f}, max {busiest}", flush=True)
 
 
@@ -583,15 +590,15 @@ def stream_frames(cfg, n_frames: int, seed: int = 0):
     return frames
 
 
-def phase_cost_volume(dev, kernels, preset="dhd_m"):
-    """B3 kernel vs its plain version at the geometry of ``preset``: the
-    stride-4 stereo feature of DHD-M (ResNet-50 layer1, C=256) or DHD-L
-    (Swin-B stage 0, C=128)."""
+def cv_inputs(dev, preset):
+    """B3's inputs at the geometry of ``preset``: the plan of a rig moving
+    0.5 m forward with 0.6 deg of yaw, and rectified bf16 stereo features
+    of the preset's width (DHD-M: ResNet-50 layer1, C=256; DHD-L: Swin-B
+    stage 0, C=128).  Returns prev, curr, uf, vf and the preset's bias."""
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.geometry import create_frustum, rigid_relative
     from dhd_tpu_torch.models import stereo_feat_channels, stream_geometry
-    from dhd_tpu_torch.ops import (build_cv_plan, cv_cost_plain,
-                                   stereo_cost_volume_cuda)
+    from dhd_tpu_torch.ops import build_cv_plan
 
     cfg = get_config(preset)
     vt = cfg.vt
@@ -614,14 +621,24 @@ def phase_cost_volume(dev, kernels, preset="dhd_m"):
     uf, vf = build_cv_plan(frustum, k2s, t(curr_f["intrins"]),
                            t(curr_f["post_rots"]), t(curr_f["post_trans"]),
                            hs, ws)
-    bn = uf.shape[0]
     c = stereo_feat_channels(cfg)
     g = torch.Generator(device=dev).manual_seed(5)
-    bf16 = torch.bfloat16
-    prev, curr = (torch.relu(torch.randn((bn, hs, ws, c), generator=g,
-                                         device=dev)).to(bf16)
+    prev, curr = (torch.relu(torch.randn((uf.shape[0], hs, ws, c),
+                                         generator=g, device=dev)
+                             ).to(torch.bfloat16)
                   for _ in range(2))
-    bias = cfg.depthnet_cfg.bias
+    return prev, curr, uf, vf, cfg.depthnet_cfg.bias
+
+
+def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None):
+    """B3 kernel vs its plain version at the geometry of ``preset``: the
+    stride-4 stereo feature of DHD-M (ResNet-50 layer1, C=256) or DHD-L
+    (Swin-B stage 0, C=128)."""
+    from dhd_tpu_torch.ops import cv_cost_plain, stereo_cost_volume_cuda
+
+    prev, curr, uf, vf, bias = cv_inputs(dev, preset)
+    bn, _, hs, ws = uf.shape
+    c = prev.shape[-1]
 
     before = stereo_cost_volume_cuda.launches
     cost_k = stereo_cost_volume_cuda(prev, curr, uf, vf, bias)
@@ -649,6 +666,8 @@ def phase_cost_volume(dev, kernels, preset="dhd_m"):
     ms = time_ms(lambda: stereo_cost_volume_cuda(prev, curr, uf, vf, bias))
     plain_ms = time_ms(lambda: cv_cost_plain(prev, curr, uf, vf, bias),
                        iters=5, warmup=1)
+    call_us = host_us(lambda: stereo_cost_volume_cuda(prev, curr, uf, vf,
+                                                      bias))
     # least time: features, plan and cost each moved once; fp32 flops of
     # the samples this rig needs
     nbytes = (2 * (prev.numel() + curr.numel())
@@ -658,7 +677,9 @@ def phase_cost_volume(dev, kernels, preset="dhd_m"):
     measured = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "host_us": call_us}
+    measured["bound_share"] = measured["bound_ms"] / ms
     # the top-level numbers are DHD-M's, each shape's are under "shapes"
     kern = kernels.setdefault("stereo_cost_volume_cuda", dict(
         {"name": "stereo_cost_volume_cuda", "route": "cuda",
@@ -677,7 +698,11 @@ def phase_cost_volume(dev, kernels, preset="dhd_m"):
           f"channel-0 zeros {share_zero:.4f}); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {measured['bound_ms']:.4f} ms "
           f"({measured['bound_by']}, {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
+          f"{nbytes / 1e6:.1f} MB; {measured['bound_share']:.3f} of the "
+          f"kernel's time); least host time per call {call_us:.1f} us; "
+          "ptxas <type, lanes per pixel, chunks per lane>: "
+          + "; ".join(short_ptxas((ptxas or {}).get("cost_volume", []),
+                                  "cost_volume_kernel")), flush=True)
 
 
 def bf16_ulp_at(x: torch.Tensor) -> float:
@@ -1199,6 +1224,8 @@ def phase_segment_sum(dev, kernels, ptxas):
 
         lib = library_segment_reduce(vals_s, seg_s, v)
         ms = time_ms(lambda: sorted_segment_sum(vals_s, seg_s, v, out_dt))
+        call_us = host_us(lambda: sorted_segment_sum(vals_s, seg_s, v,
+                                                     out_dt))
         plain_ms = time_ms(lambda: sorted_segment_sum_plain(
             vals_s, seg_s, v, out_dt), iters=10, warmup=2)
         split = {
@@ -1223,7 +1250,8 @@ def phase_segment_sum(dev, kernels, ptxas):
              "bound_ms": 1e3 * max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "P": p, "C": c, "V": v, "n_valid": n_valid,
-             "busiest_segment": hot}, **split)
+             "busiest_segment": hot, "host_us": call_us}, **split)
+        measured["bound_share"] = measured["bound_ms"] / ms
         kern["max_abs_err"] = max(kern["max_abs_err"], err)
         print(f"phase 14 ok: sorted_segment_sum vs plain at {label} "
               f"(P={p}, C={c}, V={v}, {str(dt)[6:]} -> {str(out_dt)[6:]}, "
@@ -1236,7 +1264,9 @@ def phase_segment_sum(dev, kernels, ptxas):
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, segment_reduce "
               f"{measured['library_ms']:.4f} ms, bound "
               f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}, "
-              f"{nbytes / 1e6:.2f} MB); unsorted entry "
+              f"{nbytes / 1e6:.2f} MB; {measured['bound_share']:.3f} of the "
+              f"kernel's time); least host time per call {call_us:.1f} us; "
+              "unsorted entry "
               + (f"{split['entry_ms']:.4f} ms = " if split["entry_ms"]
                  else "")
               + f"sort {split['sort_ms']:.4f} + kernel gathering the rows "
@@ -1247,9 +1277,10 @@ def phase_segment_sum(dev, kernels, ptxas):
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")})
     # per instantiation <in, out, channels per lane>: registers, spills
-    print("phase 14: ptxas: " + "; ".join(
-        re.sub(r"^.*kernelI(.*)EEvPKT_.*?:", r"<\1>:", ln)
-        for ln in ptxas.get("segment_sum", [])), flush=True)
+    print("phase 14: ptxas <in, out, channels per lane>: " + "; ".join(
+        f"{kind} " + ln for kind in ("share", "fixup")
+        for ln in short_ptxas(ptxas.get("segment_sum", []),
+                              f"segment_sum_{kind}_kernel")), flush=True)
 
 
 def phase_cli(dev, kernels):
@@ -1336,13 +1367,13 @@ def main() -> int:
     phase_kernel(dev, kernels)
     phase_serve(dev, kernels, card)
     phase_tiny(dev)
-    phase_cost_volume(dev, kernels)
+    phase_cost_volume(dev, kernels, ptxas=ptxas)
     phase_kernel(dev, kernels, "dhd_m")
     phase_stream(dev, kernels, card)
     phase_small_stream(dev, get_config("dhd_micro_stereo"), 8)
     phase_attention(dev, kernels, ptxas)
     phase_layer_norm(dev, kernels, ptxas)
-    phase_cost_volume(dev, kernels, "dhd_l")
+    phase_cost_volume(dev, kernels, "dhd_l", ptxas)
     phase_kernel(dev, kernels, "dhd_l")
     phase_stream(dev, kernels, card, "dhd_l")
     phase_small_stream(dev, tiny_dhd_l(), 13)

@@ -10,8 +10,11 @@ identity at inference and is left out.
 
 Window attention runs kernel B4 (``ops/window_attention.py``) and every
 LayerNorm kernel B5 (``ops/layer_norm.py``) unless the module is built
-with ``attn_kernel`` / ``ln_kernel`` off; on CPU tensors the wrappers take
-their plain versions.  Module attributes follow the reference's key space
+with ``attn_kernel`` / ``ln_kernel`` off, or autograd records the call: the
+kernels have no backward, so a call that needs gradients takes the plain
+version, as the JAX package runs its kernels only when ``not train``
+(``dhd_tpu/nn/swin.py:226,261``).  On CPU tensors the wrappers take their
+plain versions.  Module attributes follow the reference's key space
 (``patch_embed.{projection,norm}``, ``stages.i.blocks.j.{norm1,
 attn.w_msa.{relative_position_bias_table,qkv,proj},norm2,ffn.layers.0.0,
 ffn.layers.1}``, ``stages.i.downsample.{norm,reduction}``, ``norm{i}``).
@@ -28,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dhd_tpu_torch.ops.grad_mode import records_grad
 from dhd_tpu_torch.ops.layer_norm import (fused_layer_norm_cuda,
                                           layer_norm_plain)
 from dhd_tpu_torch.ops.window_attention import (window_attention_cuda,
@@ -121,7 +125,7 @@ def _device_shift_mask(hp: int, wp: int, ws: int, shift: int,
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis with the JAX package's numerics (one-pass
     fp32 statistics, eps 1e-6): kernel B5, or its plain version with
-    ``kernel=False``.  ``weight`` / ``bias`` stay fp32 in a bf16 model, as
+    ``kernel=False`` or under autograd.  ``weight`` / ``bias`` stay fp32 in a bf16 model, as
     the JAX package keeps them (dhd_tpu/nn/swin.py:120-121)."""
 
     def __init__(self, channels: int, eps: float = 1e-6, kernel: bool = True):
@@ -137,14 +141,16 @@ class FusedLayerNorm(nn.Module):
             lambda t: t.float() if t.is_floating_point() else t)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fn = fused_layer_norm_cuda if self.kernel else layer_norm_plain
+        fn = (fused_layer_norm_cuda
+              if self.kernel and not records_grad(x, self.weight, self.bias)
+              else layer_norm_plain)
         return fn(x, self.weight, self.bias, self.eps)
 
 
 class WindowMSA(nn.Module):
     """Window multi-head self-attention with a relative position bias over
     (W, N, C) windows: the qkv Linear, kernel B4 (or its plain version with
-    ``kernel=False``), the output projection."""
+    ``kernel=False`` or under autograd), the output projection."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  kernel: bool = True):
@@ -167,7 +173,9 @@ class WindowMSA(nn.Module):
         bias = self.relative_position_bias_table[
             self.relative_position_index].reshape(n, n, self.num_heads)
         bias = bias.permute(2, 0, 1).to(qkv.dtype).contiguous()
-        fn = window_attention_cuda if self.kernel else window_attention_plain
+        fn = (window_attention_cuda
+              if self.kernel and not records_grad(qkv, bias)
+              else window_attention_plain)
         return self.proj(fn(qkv, bias, mask, self.num_heads))
 
 

@@ -13,13 +13,18 @@ order of the fp32 channel sum.
 Bound on an H100 at DHD-M shapes (6 cameras, 88 bins, 64x176, C=256):
 operations, about 11 fp32 flops per sample and channel (16.7 GFLOP,
 0.25 ms at 67 TFLOP/s); the bytes (bf16 features, fp32 plan and cost,
-140 MB) take 0.04 ms.  Design (see the source): one warp per pixel holding
-its ``curr`` row in registers for the depth sweep, 16-byte gathers of the
-four taps' channel rows, a shuffle reduction per depth bin.
+140 MB) take 0.04 ms; the time follows each sample's fixed cost.  Design
+(see the source): C/8 lanes per pixel in bf16 (C/4 in fp32, at most 32),
+so no lane idles at C = 128; a block of 256 threads sweeps the depth bins
+in lock-step over a compact tile of pixels with the plan staged in shared
+memory; each lane keeps its ``curr`` chunks in registers and has the 16-byte
+tap gathers of the next bin in flight while it sums the current one, and
+the costs leave as coalesced rows.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +35,15 @@ _CHUNK = {torch.bfloat16: 8, torch.float32: 4}   # elements per 16-byte load
 _MAX_CHUNKS_PER_LANE = 2   # C <= 512 in bf16, <= 256 in fp32
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The kernel's C entry for ``dtype``, its ctypes signature set once."""
+    fn = getattr(load("cost_volume"), _FN[dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def cv_cost_plain(prev: torch.Tensor, curr: torch.Tensor, uf: torch.Tensor,
@@ -121,12 +135,10 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
     if cost.numel() == 0:
         return cost
 
-    fn = getattr(load("cost_volume"), _FN[prev.dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(prev.data_ptr(), curr.data_ptr(), uf.data_ptr(), vf.data_ptr(),
-             cost.data_ptr(), bn * hs * ws, d, hs, ws, c, float(bias),
-             torch.cuda.current_stream(prev.device).cuda_stream)
+    err = _entry(prev.dtype)(
+        prev.data_ptr(), curr.data_ptr(), uf.data_ptr(), vf.data_ptr(),
+        cost.data_ptr(), bn, d, hs, ws, c, float(bias),
+        torch._C._cuda_getCurrentRawStream(prev.get_device()))
     if err != 0:
         raise RuntimeError(
             f"cost_volume kernel launch failed: CUDA error {err}")

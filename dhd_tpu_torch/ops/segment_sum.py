@@ -10,14 +10,20 @@ knobs (``interpret``, ``block_v``, ``chunk_p``) have no counterpart.
 
 Bound on an H100 at the DHD-S ``--what pool`` shapes (P = 185,856 rows of
 C = 64 bf16, V = 640,000): bytes, 23.8 MB of rows, 0.7 MB of ids and the
-81.9 MB output, 0.032 ms at 3.35 TB/s.  Design (see the source): a warp per
-run of 32 segments finds its points by binary search over the sorted ids,
-sums them in registers with its lanes across the channels and writes each
-output row once, so it needs no atomics and no zero-fill pass.
+81.9 MB output, 0.032 ms at 3.35 TB/s.  Design (see the source): the
+points and the segment ends are split merge-path style, so every warp takes
+an equal share of (points + segments) whatever the ids' skew, and a share
+boundary inside a segment moves to the segment's end when that is near, so
+only long segments cross shares; a warp sums its points in registers with
+its lanes across the channels and writes each segment that lies wholly in
+its share once, and a second pass adds the fp32 partial rows of the
+segments that cross shares, in share order: no atomics, no zero-fill pass,
+the same sums on every run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -25,7 +31,35 @@ import torch
 from dhd_tpu_torch.ops.cuda_build import load
 
 _NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(in_dtype: torch.dtype, out_dtype: torch.dtype):
+    """The kernel's C entry for the dtypes, its ctypes signature set once."""
+    fn = getattr(load("segment_sum"),
+                 f"segment_sum_{_NAME[in_dtype]}_{_NAME[out_dtype]}")
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _items() -> int:
+    """Points + segment ends per warp's share of the merge."""
+    return int(load("segment_sum").segment_sum_items())
+
+
+def channels_per_lane(vals: torch.Tensor) -> int:
+    """The kernel's channels per lane for (P, C) ``vals``: the fewest
+    passes over the channels (32 lanes of that many each), up to 4 channels
+    a lane in accesses that keep the rows' alignment."""
+    c, esz = vals.shape[-1], vals.element_size()
+    vec = 1
+    while c > 32 * vec and vec < 4 and c % (2 * vec) == 0 \
+            and vals.data_ptr() % (2 * vec * esz) == 0:
+        vec *= 2
+    return vec
 
 
 def sorted_segment_sum_plain(vals: torch.Tensor, seg_sorted: torch.Tensor,
@@ -93,23 +127,21 @@ def sorted_segment_sum(vals: torch.Tensor, seg_sorted: torch.Tensor,
         raise ValueError(f"vals has {p_rows} rows for {p} ids")
     if c < 1 or num_segments < 0:
         raise ValueError(f"unsupported C={c}, V={num_segments}")
-    if max(p_rows * c, num_segments * c, p) >= 2 ** 31:
+    if max(p_rows * c, num_segments * c, p + num_segments) >= 2 ** 31:
         raise ValueError("inputs too large for int32 indices")
     out = torch.empty((num_segments, c), dtype=out_dtype, device=vals.device)
     if out.numel() == 0:
         return out
-    # two channels per lane where the rows keep two-element alignment
-    vec = 2 if (c % 2 == 0 and vals.data_ptr() % (2 * vals.element_size())
-                == 0) else 1
-
-    fn = getattr(load("segment_sum"),
-                 f"segment_sum_{_NAME[vals.dtype]}_{_NAME[out_dtype]}")
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(vals.data_ptr(), seg_sorted.data_ptr(),
-             order.data_ptr() if order is not None else None,
-             out.data_ptr(), p, c, num_segments, vec,
-             torch.cuda.current_stream(vals.device).cuda_stream)
+    vec = channels_per_lane(vals)
+    # per share: a carry and a head row of C fp32, and their two row ids
+    shares = -(-(p + num_segments) // _items())
+    scratch = torch.empty(shares * (2 * c + 2), dtype=torch.float32,
+                          device=vals.device)
+    err = _entry(vals.dtype, out_dtype)(
+        vals.data_ptr(), seg_sorted.data_ptr(),
+        order.data_ptr() if order is not None else None, out.data_ptr(),
+        scratch.data_ptr(), p, c, num_segments, vec,
+        torch._C._cuda_getCurrentRawStream(vals.get_device()))
     if err != 0:
         raise RuntimeError(
             f"segment_sum kernel launch failed: CUDA error {err}")

@@ -454,3 +454,197 @@ def test_time_ms_idle_counts_host_time(cuda):
 
     assert chip_smoke.time_ms(call, iters=10, warmup=2, busy=False) > 0.25
     assert chip_smoke.host_us(call, iters=10, warmup=2) > 250
+
+
+SEGSUM_EDGES = {
+    # name: (P, V, C, ids): P ids from a seeded rng, before sorting
+    "one_id_many_shares": (50000, 1000, 64, lambda r, p, v: np.full(p, 417)),
+    "v1": (5000, 1, 64, lambda r, p, v: r.integers(-1, 3, p)),
+    "p0": (0, 300, 64, lambda r, p, v: np.zeros(0, np.int64)),
+    "hot_first": (30000, 2000, 96, lambda r, p, v: np.where(
+        r.random(p) < 0.3, 0, r.integers(0, v, p))),
+    "hot_last": (30000, 2000, 96, lambda r, p, v: np.where(
+        r.random(p) < 0.3, v - 1, r.integers(0, v, p))),
+    "negative": (20000, 3000, 64, lambda r, p, v: r.integers(-v, v, p)),
+    "odd_c7": (20000, 900, 7, lambda r, p, v: np.where(
+        r.random(p) < 0.5, 5, r.integers(-3, v + 3, p))),
+    "odd_c33": (20000, 900, 33, lambda r, p, v: r.integers(0, 2 * v, p)),
+}
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("case", sorted(SEGSUM_EDGES))
+def test_segment_sum_kernel_edges(cuda, case, dtype, out_dtype):
+    """B2 where the merge-path split matters: one segment over hundreds of
+    warps' shares, every point on one id, V = 1, no points, a hot id at the
+    first and at the last segment, negative ids, odd C.  Against the plain
+    version as in test_segment_sum_kernel_matches_plain; the kernel
+    gathering the rows itself (``order``) gives the same sums bit for bit,
+    and so does a second launch."""
+    p, v, c, ids = SEGSUM_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    seg = torch.tensor(ids(rng, p, v), dtype=torch.int32, device=cuda)
+    vals = torch.tensor(rng.normal(0, 1, (p, c)), dtype=dtype, device=cuda)
+    seg_s, order = torch.sort(seg, stable=True)
+    vals_s = vals[order].contiguous()
+    before = sorted_segment_sum.launches
+    got = sorted_segment_sum(vals_s, seg_s, v, out_dtype)
+    gathered = sorted_segment_sum(vals, seg_s, v, out_dtype,
+                                  order=order.to(torch.int32))
+    again = sorted_segment_sum(vals_s, seg_s, v, out_dtype)
+    assert sorted_segment_sum.launches == before + 3
+    want = sorted_segment_sum_plain(vals_s, seg_s, v, out_dtype)
+    terms = sorted_segment_sum_plain(vals_s.abs(), seg_s, v)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (v, c)
+    assert torch.equal(got, gathered) and torch.equal(got, again)
+    wf = want.float()
+    ulp = (torch.where(wf == 0, 0.0,
+                       torch.exp2(torch.floor(torch.log2(wf.abs())) - 7))
+           if out_dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - wf).abs() <= ulp + 2.0 ** -20 * terms).all())
+    keep = seg[(seg >= 0) & (seg < v)].long()
+    empty = torch.bincount(keep, minlength=v) == 0
+    assert bool((got[empty] == 0).all())
+    if out_dtype == dtype:
+        assert torch.equal(segment_sum_pooling(vals, seg, v), got)
+
+
+def _cv_edge_inputs(dev, dtype, c, hs, ws, depth):
+    """_cv_inputs on a map whose width is no multiple of the kernel's
+    pixel tiles, with two depth bins all sentinel and exact zeros in
+    channel 0 over a band of the previous frame."""
+    from dhd_tpu_torch.ops.cost_volume import SENTINEL
+
+    rng = np.random.default_rng(c + hs)
+    bn = 2
+    intr = np.zeros((1, bn, 3, 3), np.float32)
+    intr[..., 0, 0] = intr[..., 1, 1] = ws * 4 * 0.8
+    intr[..., 0, 2], intr[..., 1, 2], intr[..., 2, 2] = ws * 2, hs * 2, 1.0
+    k2s = np.broadcast_to(np.eye(4, dtype=np.float32), (1, bn, 4, 4)).copy()
+    k2s[0, :, :3, 3] = rng.uniform(-0.3, 0.3, (bn, 3))
+    frustum = create_frustum(depth, (hs * 4, ws * 4), 4, device=dev)
+    t = lambda a: torch.tensor(a, device=dev)
+    uf, vf = build_cv_plan(frustum, t(k2s), t(intr),
+                           torch.eye(3, device=dev).expand(1, bn, 3, 3),
+                           torch.zeros(1, bn, 3, device=dev), hs, ws)
+    uf[:, 1], vf[:, 1] = SENTINEL, SENTINEL
+    uf[:, -1], vf[:, -1] = SENTINEL, SENTINEL
+    prev, curr = (torch.tensor(rng.normal(0, 1, (bn, hs, ws, c)),
+                               dtype=dtype, device=dev) for _ in range(2))
+    prev[:, hs // 3: hs // 2, :, 0] = 0
+    return prev, curr, uf.contiguous(), vf.contiguous()
+
+
+@pytest.mark.parametrize("dtype,c", [
+    (torch.bfloat16, 8), (torch.bfloat16, 64), (torch.bfloat16, 128),
+    (torch.bfloat16, 256), (torch.bfloat16, 512), (torch.float32, 8),
+    (torch.float32, 128), (torch.float32, 256)])
+def test_cost_volume_kernel_widths(cuda, dtype, c):
+    """B3 at every lane-group width (one lane to 32 lanes a pixel, and two
+    chunks a lane), on a 13 x 37 map (no multiple of any pixel tile) with
+    13 depth bins (no multiple of the bins staged at a time), two bins all
+    sentinel and channel-0 zeros in the signed previous features: the
+    costs within rtol 1e-5 of plain, the bias on the same samples, the
+    sentinel bins at sum |curr| + bias."""
+    prev, curr, uf, vf = _cv_edge_inputs(cuda, dtype, c, 13, 37,
+                                         GridConfig(1.0, 7.5, 0.5))
+    assert uf.shape[1] == 13
+    before = stereo_cost_volume_cuda.launches
+    got = stereo_cost_volume_cuda(prev, curr, uf, vf, 5.0)
+    assert stereo_cost_volume_cuda.launches == before + 1
+    want = cv_cost_plain(prev, curr, uf, vf, 5.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * c ** 0.5)
+    no_bias = cv_cost_plain(prev, curr, uf, vf, 0.0)
+    hit = (want - no_bias) > 2.5
+    assert bool(((got - no_bias > 2.5) == hit).all())
+    assert bool(hit[:, 1].all()) and bool((hit & (uf > -1e3)).any())
+    off = curr.float().abs().sum(-1) + 5.0
+    torch.testing.assert_close(got[:, 1], off, rtol=1e-5,
+                               atol=1e-4 * c ** 0.5)
+    torch.testing.assert_close(torch.softmax(-got, 1),
+                               torch.softmax(-want, 1), atol=2e-5, rtol=1e-4)
+
+
+def _grads(mod, loss_fn):
+    mod.zero_grad()
+    loss_fn().backward()
+    return {n: p.grad.detach().cpu() for n, p in mod.named_parameters()
+            if p.grad is not None}
+
+
+def test_swin_gradients_on_the_card(cuda):
+    """A small Swin (embed 32, heads of 16, window 4) in fp32 under
+    training on the card against the same weights on the CPU: every
+    parameter's gradient within 2e-4 of its peak (B4 and B5 step aside
+    under autograd).  Under no_grad the same module launches them."""
+    from dhd_tpu_torch.nn.swin import SwinTransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = SwinTransformer(32, (2, 2), (2, 4), 4, (1,))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(p.numel())))
+    gpu = SwinTransformer(32, (2, 2), (2, 4), 4, (1,)).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, 32, 48, generator=torch.Generator().manual_seed(2))
+    r = [torch.randn(o.shape, generator=torch.Generator().manual_seed(3))
+         for o in cpu(x)]
+    attn, ln = window_attention_cuda.launches, fused_layer_norm_cuda.launches
+    g_gpu = _grads(gpu, lambda: sum((o * w.to(cuda)).sum()
+                                    for o, w in zip(gpu(x.to(cuda)), r)))
+    assert (window_attention_cuda.launches, fused_layer_norm_cuda.launches
+            ) == (attn, ln)
+    g_cpu = _grads(cpu, lambda: sum((o * w).sum() for o, w in zip(cpu(x), r)))
+    assert set(g_gpu) == set(g_cpu) == {n for n, _ in cpu.named_parameters()}
+    for n, g in g_cpu.items():
+        peak = max(1e-3, float(g.abs().max()))
+        assert float((g_gpu[n] - g).abs().max()) / peak < 2e-4, n
+    with torch.no_grad():
+        gpu(x.to(cuda))
+    assert window_attention_cuda.launches == attn + 4
+    assert fused_layer_norm_cuda.launches == ln + 11
+
+
+def test_view_transformer_gradients_on_the_card(cuda):
+    """dhd_tiny's view transformer in fp32 under training with the cached
+    plan: B1 forward on the card and its torch backward, against the same
+    weights on the CPU (the plain plan forward), the image features' and
+    every parameter's gradient within 2e-4 of its peak."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import DHDNet, build_batch_pool_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("dhd_tiny")
+    batch = synthetic_batch(cfg, batch_size=1, seed=6, with_gt=False)
+    fh, fw = cfg.vt.feat_size
+    x0 = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, (1, cfg.num_cams, cfg.vt.in_channels, fh, fw)).astype(
+            np.float32))
+    gpu = DHDNet(cfg, device=cuda, generator=torch.Generator().manual_seed(5))
+    cpu = DHDNet(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    grads = []
+    for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        plan = build_batch_pool_plan(cfg, batch, device=dev)
+        x = x0.to(dev).requires_grad_(True)
+        vt_mod = model.img_view_transformer
+        before = mghs_pool_cuda.launches
+        out = vt_mod(x, model._geom(batch), plan)
+        assert mghs_pool_cuda.launches == before + (dev.type == "cuda")
+        g = _grads(vt_mod, lambda: out["bev"].square().sum()
+                   + out["vox"].square().sum())
+        g["x"] = x.grad.cpu()
+        grads.append(g)
+    g_gpu, g_cpu = grads
+    assert set(g_gpu) == set(g_cpu) and len(g_cpu) > 2
+    for n, g in g_cpu.items():
+        peak = max(1e-3, float(g.abs().max()))
+        assert float((g_gpu[n] - g).abs().max()) / peak < 2e-4, n

@@ -210,3 +210,20 @@ def test_bev_pool_v1_matches_jax(pool):
                                  b=2, dz=2, dy=3, dx=4, pool=pool))
     got = bev_pool(T(feats), T(coords), 2, 2, 3, 4, pool)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,c,offset,want", [
+    (torch.bfloat16, 8, 0, 1), (torch.bfloat16, 64, 0, 2),
+    (torch.bfloat16, 96, 0, 4), (torch.bfloat16, 256, 0, 4),
+    (torch.bfloat16, 256, 1, 1), (torch.bfloat16, 256, 2, 2),
+    (torch.float32, 64, 0, 2), (torch.float32, 256, 0, 4),
+    (torch.float32, 33, 0, 1), (torch.bfloat16, 7, 0, 1)])
+def test_channels_per_lane(dtype, c, offset, want):
+    """B2's channels per lane: the fewest passes of 32 lanes over C, at
+    most 4 channels a lane (wider accesses measured slower on an H100),
+    no more than the rows' alignment allows."""
+    from dhd_tpu_torch.ops.segment_sum import channels_per_lane
+
+    rows = torch.zeros(4 * c + 4, dtype=dtype)[offset:offset + 4 * c]
+    assert channels_per_lane(rows.view(4, c)) == want
+
