@@ -16,7 +16,15 @@ commit unpacked under ``build/``).  WHAT names the phases, by default
 - ``cv``: the stereo cost volume (B3) against its plain version at DHD-M
   and DHD-L, phases 5 and 11;
 - ``segsum``: the sorted segment-sum (B2) against its plain version and
-  ``torch.segment_reduce`` at its cases, phase 14.
+  ``torch.segment_reduce`` at its cases, phase 14;
+- ``pool``: the fused MGHS pooling (B1) against its plain version at DHD-S,
+  DHD-M and DHD-L (phases 2, 6 and 11) and at the hot pillar (phase 14);
+- ``uncached``: the paths that build the pool plan in the call: DHD-S
+  frames without a cached plan (phase 3's uncached reading: median
+  frame, device busy time, host syncs), then the benchmark CLI
+  (``dhd_tpu_torch.cli.benchmark.main``): ``--what pool`` at DHD-S and
+  DHD-L (B1 with the plan built in the call, and with a cached one) and
+  ``--what full`` at DHD-S (a whole frame).
 
 Run it once per tree on one card, in the order parent, change, change,
 parent.
@@ -27,7 +35,11 @@ import pathlib
 import sys
 import time
 
-WHAT = ("stream", "dhd_l", "kernels", "cv", "segsum")
+WHAT = ("stream", "dhd_l", "kernels", "cv", "segsum", "pool", "uncached")
+# the CLI runs of ``uncached``
+UNCACHED = (("--preset", "dhd_s", "--what", "pool", "--iters", "50"),
+            ("--preset", "dhd_l", "--what", "pool", "--iters", "50"),
+            ("--preset", "dhd_s", "--what", "full", "--iters", "200"))
 
 
 def main() -> int:
@@ -71,6 +83,17 @@ def main() -> int:
         elif w == "segsum":
             print(card, flush=True)
             smoke.phase_segment_sum(dev, kernels, ptxas)
+        elif w == "pool":
+            print(card, flush=True)
+            for preset in ("dhd_s", "dhd_m", "dhd_l", "hot"):
+                smoke.phase_kernel(dev, kernels, preset, ptxas)
+        elif w == "uncached":
+            from dhd_tpu_torch.cli.benchmark import main as benchmark
+            smoke.phase_serve_uncached(dev, card)
+            for argv in UNCACHED:
+                print(" ".join(argv), flush=True)
+                smoke.check(benchmark(list(argv)) == 0, f"cli {argv} failed")
+                torch.cuda.empty_cache()
         else:
             print(card, flush=True)
             smoke.phase_attention(dev, kernels, ptxas)

@@ -9,11 +9,22 @@ Phases, one line each; any failure raises and exits non-zero:
    ``dhd_tpu_torch/csrc`` (one nvcc per source, all started together);
 2. kernel vs plain: ``mghs_pool_cuda`` (B1) against its plain PyTorch
    version at DHD-S shapes in bf16 (fp32 sums), every element within one
-   bf16 ulp; times by CUDA events, median of 30 launches each;
+   bf16 ulp, two calls bit-identical; times by CUDA events, median of 30
+   launches each; the points per non-empty pillar (mean, p99, max, the
+   pillars over 256), the device memory one call takes, and B1 with the
+   plan built in the call (sort, plan, pool: device, idle-card and host
+   time); then B1's plan kernels (``pool_plan_cuda``: the sorted points'
+   tables and the first pass's schedule, which every plan built on the
+   card runs) against their plain version: equal tables and lists, both
+   timed, and the scratch slots the split pillars use against the bound
+   a plan built in the call allocates;
 3. serving: DHD-S at full width (B=1, 6 cameras, 256x704) in bf16 with
    seeded random weights and a cached pool plan answers 5 frames; each
    kernel must launch once per frame; one frame is repeated with the plain
-   pooling forced and must agree;
+   pooling forced and must agree; then 20 frames without the cached plan
+   (each sorts and plans in the call, as ``cli --what full`` serves):
+   their median, one frame's device busy time and host syncs, B1 and
+   its plan kernels once a frame;
 4. small reference: dhd_tiny in fp32 on the GPU against the same weights on
    the CPU (plain path), TF32 off;
 5. kernel vs plain: ``stereo_cost_volume_cuda`` (B3) against its plain
@@ -24,7 +35,7 @@ Phases, one line each; any failure raises and exits non-zero:
    host microseconds per call, ptxas's registers, spills and shared
    memory (the B1 phases print the host microseconds too);
 6. kernel vs plain: ``mghs_pool_cuda`` (B1) again at DHD-M shapes (the
-   streamed frame's plan, 88 depth bins), within one bf16 ulp;
+   streamed frame's plan, 88 depth bins), as phase 2;
 7. streaming serving: DHD-M at full width in bf16 with seeded random
    weights, a cached pool plan and the rig-static half of the stereo warp
    plan (``cv_static``), one bootstrap frame then 5 frames with the ego
@@ -71,16 +82,21 @@ Phases, one line each; any failure raises and exits non-zero:
    sorted one; kernel, plain and ``torch.segment_reduce`` ms, the
    unsorted entry split into sort, row gather and kernel, the bound and
    its share of the kernel's time, the wrapper's least host microseconds
-   per call, ptxas's registers and spills of both of B2's launches;
+   per call, ptxas's registers and spills of both of B2's launches; then
+   B1 at its hot pillar (DHD-S with a tenth of the frustum points, about
+   17,600 in the grid, in one pillar), as phase 2, held to one bf16 ulp;
 15. the benchmark CLI on the card, in-process through
    ``dhd_tpu_torch.cli.benchmark.main``: ``--what pool`` at DHD-S and
-   DHD-L (B1 and B2 must launch), ``--what stream`` at DHD-M (its frames
+   DHD-L (B1, its plan kernels and B2 must launch), ``--what stream`` at
+   DHD-M (its frames
    must ship ``cv_static``, and B1 and B3 must launch), ``--what cv`` at
    DHD-L,
    ``--what stages`` and ``--what flops`` at DHD-S, and ``--what full
-   --profile`` at DHD-S; every time it prints must be finite.
+   --profile`` at DHD-S (stages and full plan in the call: B1 and its
+   plan kernels must launch); every time it prints must be finite.
 
-Then one JSON line listing the kernels B1-B5 (each shape's numbers under
+Then one JSON line listing the kernels B1-B5 and B1's plan kernels
+(each shape's numbers under
 ``shapes``, launches per served path and per CLI run under
 ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and last
@@ -123,8 +139,8 @@ TERM_TOL = 2.0 ** -20       # B5 (and B1 at DHD-L) vs plain, per element:
 #                             cancel the result is tiny and so are its ulps)
 LN_FLOPS = 8                # per element: x, x^2 sums; sub, mul, fma, ...
 # the phase that prints each check, by preset
-PHASE_OF = {"dhd_s": {"pool": 2}, "dhd_m": {"pool": 6, "cv": 5,
-                                            "stream": 7},
+PHASE_OF = {"dhd_s": {"pool": 2}, "hot": {"pool": 14},
+            "dhd_m": {"pool": 6, "cv": 5, "stream": 7},
             "dhd_l": {"pool": 11, "cv": 11, "stream": 12}}
 SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device clock ahead of each timed call
@@ -236,19 +252,72 @@ def sum_error_share(y_k, y_p, terms) -> float:
     return float(torch.where(diff > 0, diff / tol, 0.0).max())
 
 
-def phase_kernel(dev, kernels, preset="dhd_s"):
-    """B1 kernel vs its plain version at the geometry of ``preset``: DHD-S
-    (the single-frame plan, D=44) or DHD-M (the streamed frame's plan, as
-    the streaming step pools it, D=88)."""
+def pool_indices(dev, preset):
+    """The (vt, PoolIndices, cams shape) that :func:`pool_case` plans from:
+    DHD-S's rig, DHD-M's or DHD-L's streamed frame (its frame-relative
+    sensor2keyego), or ``hot``: DHD-S's with the first 10% of the frustum
+    points (in (B, N, D, fH, fW) order) moved into one pillar near the
+    ego, their heights kept."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.geometry import create_frustum, frustum_to_ego
+    from dhd_tpu_torch.models.dhd import GEOM_KEYS
+    from dhd_tpu_torch.models.dhd_stereo import stream_geometry
+    from dhd_tpu_torch.ops import compute_pool_indices
+
+    cfg = get_config("dhd_s" if preset == "hot" else preset)
+    vt = cfg.vt
+    def geom(k):
+        return torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32,
+                               device=dev)
+
+    if cfg.temporal:
+        batch = stream_frames(cfg, 1)[0]
+        s2k = stream_geometry(geom("sensor2ego"), geom("ego2global"))[0]
+        batch = dict(batch, sensor2keyego=s2k.cpu())
+    else:
+        batch = synthetic_batch(cfg, batch_size=1, seed=0, with_gt=False)
+    frustum = create_frustum(vt.depth, vt.input_size, vt.downsample, vt.sid,
+                             device=dev)
+    coords = frustum_to_ego(frustum, *(geom(k) for k in GEOM_KEYS))
+    if preset == "hot":
+        flat = coords.clone().view(-1, 3)
+        n_hot = flat.shape[0] // 10
+        flat[:n_hot, 0] = vt.x.lower + (vt.x.size // 2 + 0.5) * vt.x.interval
+        flat[:n_hot, 1] = vt.y.lower + (vt.y.size // 2 + 0.5) * vt.y.interval
+        coords = flat.view(coords.shape)
+    return vt, compute_pool_indices(coords, vt), tuple(coords.shape[:-1])
+
+
+def pillar_histogram(plan) -> dict:
+    """Points per non-empty pillar: mean, p99, max, and the pillars of more
+    than 256 points (one warp's share of B1)."""
+    n = (plan.starts[1:] - plan.starts[:-1]).float()
+    n = n[n > 0]
+    return {"pillars": int(n.numel()), "mean": float(n.mean()),
+            "p99": float(torch.quantile(n, 0.99)), "max": int(n.max()),
+            "over_256": int((n > 256).sum())}
+
+
+def pool_case(dev, preset):
+    """B1's inputs at the geometry of ``preset``: DHD-S (the single-frame
+    plan, D=44), DHD-M or DHD-L (the streamed frame's plan, as the
+    streaming step pools it, D=88), or ``hot`` (:func:`pool_indices`);
+    softmaxed bf16 depth, unit-normal features and one-hot band gates (a
+    quarter of the pixels gated off) from seed 1.  Returns the config, the
+    plan and the kernel's arguments."""
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.data import synthetic_batch
     from dhd_tpu_torch.models import (build_batch_pool_plan,
                                       build_stream_pool_plan)
-    from dhd_tpu_torch.ops import mghs_pool_cuda, mghs_pool_plan_plain
+    from dhd_tpu_torch.ops import build_pool_plan
 
-    cfg = get_config(preset)
+    cfg = get_config("dhd_s" if preset == "hot" else preset)
     vt = cfg.vt
-    if cfg.temporal:
+    if preset == "hot":
+        _, idx, shape = pool_indices(dev, "hot")
+        plan = build_pool_plan(idx, vt, shape)
+    elif cfg.temporal:
         plan = build_stream_pool_plan(cfg, stream_frames(cfg, 1)[0],
                                       device=dev)
     else:
@@ -264,11 +333,26 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
                        device=dev).to(bf16)
     band = torch.randint(0, 4, px, generator=g, device=dev)
     band_mask = torch.nn.functional.one_hot(band, 4)[..., :3].to(bf16)
+    return cfg, plan, depth, feat, band_mask
 
+
+def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
+    """B1 kernel vs its plain version at the inputs of :func:`pool_case`;
+    also B1 with the plan built in the call, as a frame without a cached
+    plan pools.  Returns the plan."""
+    from dhd_tpu_torch.ops import (build_pool_plan, mghs_pool_cuda,
+                                   mghs_pool_plan_plain)
+
+    cfg, plan, depth, feat, band_mask = pool_case(dev, preset)
+    vt = cfg.vt
     before = mghs_pool_cuda.launches
     bev_k, vox_k = mghs_pool_cuda(depth, feat, band_mask, plan)
+    bev_2, vox_2 = mghs_pool_cuda(depth, feat, band_mask, plan)
     torch.cuda.synchronize()
-    check(mghs_pool_cuda.launches == before + 1, "kernel launch not counted")
+    check(mghs_pool_cuda.launches == before + 2, "kernel launch not counted")
+    check(torch.equal(bev_k, bev_2) and torch.equal(vox_k, vox_2),
+          f"mghs_pool_cuda at {preset}: two calls differ")
+    del bev_2, vox_2
     bev_p, vox_p = mghs_pool_plan_plain(depth, feat, band_mask, plan)
     # the sums of |d * feat|: the scale of each output's fp32 terms
     bev_a, vox_a = mghs_pool_plan_plain(depth, feat.abs(), band_mask, plan)
@@ -278,18 +362,37 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
               float((vox_k.float() - vox_p.float()).abs().max()))
     share = max(sum_error_share(bev_k, bev_p, bev_a),
                 sum_error_share(vox_k, vox_p, vox_a))
-    # DHD-L's pillars sum ~4x DHD-M's points, and a sum that nearly cancels
-    # is many of its own bf16 ulps off for an fp32-level difference: there
-    # the bar is one ulp plus 2^-20 of the terms' magnitudes
+    # DHD-L's pillars sum ~4x DHD-M's points, and a sum that nearly
+    # cancels is many of its own bf16 ulps off for an fp32-level
+    # difference: there the bar is one ulp plus 2^-20 of the terms'
+    # magnitudes
     check(ulps <= POOL_ULP_TOL or (preset == "dhd_l" and share <= 1),
           f"mghs_pool_cuda differs from plain by {ulps} bf16 ulps "
           f"({share:.3f} of one ulp plus 2^-20 of the terms)")
     check(float(vox_k.float().abs().sum()) > 0, "vox is all zero")
+    del bev_p, vox_p, bev_a, vox_a
 
     ms = time_ms(lambda: mghs_pool_cuda(depth, feat, band_mask, plan))
     plain_ms = time_ms(
         lambda: mghs_pool_plan_plain(depth, feat, band_mask, plan))
     call_us = host_us(lambda: mghs_pool_cuda(depth, feat, band_mask, plan))
+    # device memory one call takes beyond its inputs: the outputs, and any
+    # scratch the kernel allocates
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mghs_pool_cuda(depth, feat, band_mask, plan)
+    torch.cuda.synchronize()
+    call_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
+    # the uncached path: sort, plan and pool in the call; device time, the
+    # time on an idle card (the host's enqueueing included) and host time
+    _, idx, shape = pool_indices(dev, preset)
+
+    def uncached():
+        return mghs_pool_cuda(depth, feat, band_mask,
+                              build_pool_plan(idx, vt, shape))
+    cold = (time_ms(uncached), time_ms(uncached, busy=False),
+            host_us(uncached))
 
     # least time: each input read once, each output written once; the
     # sorted-point work counts only the points inside the grid
@@ -301,9 +404,7 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
     n_gated = int(((z >= 0)
                    & (band_mask.reshape(-1, 3)[pix, bnd] > 0)
                    ).sum())
-    per_pillar = (plan.starts[1:] - plan.starts[:-1])
-    busiest = int(per_pillar.max())
-    mean_pts = n_valid / max(1, int((per_pillar > 0).sum()))
+    hist = pillar_histogram(plan)
     c = vt.out_channels
     nbytes = (2 * (vox_k.numel() + bev_k.numel() + depth.numel()
                    + feat.numel() + band_mask.numel())
@@ -314,7 +415,9 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "host_us": call_us}
+        "host_us": call_us, "points_per_pillar": hist,
+        "call_peak_mb": call_mb, "plan_in_call_ms": cold[0],
+        "plan_in_call_idle_ms": cold[1], "plan_in_call_host_us": cold[2]}
     # the top-level numbers are DHD-S's, each shape's are under "shapes";
     # max_abs_err is the largest over the shapes
     kern = kernels.setdefault("mghs_pool_cuda", dict(
@@ -328,14 +431,94 @@ def phase_kernel(dev, kernels, preset="dhd_s"):
           f"plain at {preset} (D={vt.D}, C={c}): "
           f"P={plan.dix_s.numel()} points ({n_valid} in grid, {n_gated} "
           f"gated on) -> vox "
-          f"{tuple(vox_k.shape)}, bev {tuple(bev_k.shape)} bf16; max abs err "
+          f"{tuple(vox_k.shape)}, bev {tuple(bev_k.shape)} bf16; two calls "
+          f"bit-identical; max abs err "
           f"{err:.3e}, max {ulps} bf16 ulp (tol {POOL_ULP_TOL}), {share:.3f} "
           f"of one ulp plus 2^-20 of the terms; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}, "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); least host "
-          f"time per call {call_us:.1f} us; points per "
-          f"non-empty pillar: mean {mean_pts:.1f}, max {busiest}", flush=True)
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
+          f"{measured['bound_ms'] / ms:.3f} of the kernel's time); least "
+          f"host time per call {call_us:.1f} us; points per non-empty "
+          f"pillar ({hist['pillars']}): mean {hist['mean']:.1f}, p99 "
+          f"{hist['p99']:.0f}, max {hist['max']}, {hist['over_256']} "
+          f"pillars over 256; one call's peak memory {call_mb:.1f} MB "
+          f"(outputs {2 * (vox_k.numel() + bev_k.numel()) / 1e6:.1f} MB); "
+          f"plan built in the call: {cold[0]:.4f} ms device, {cold[1]:.4f} "
+          f"ms on an idle card, {cold[2]:.0f} us host"
+          + ("; ptxas <type, channels per lane>: " + "; ".join(
+              f"{kind} {ln}" for kind in ("mghs_pool", "mghs_pool_combine")
+              for ln in short_ptxas(ptxas.get("mghs_pool", []),
+                                    f"{kind}_kernel")) if ptxas else ""),
+          flush=True)
+    return plan
+
+
+def phase_plan(dev, kernels, preset, plan):
+    """B1's plan kernels (``pool_plan_cuda``: the sorted points' tables and
+    the first pass's schedule, built with every plan on the card, so every
+    frame of the uncached path) vs their plain version on ``preset``'s
+    sorted keys: every table and list must be equal, and equal to
+    ``plan``'s (:func:`pool_case`'s).  Also the scratch the split pillars
+    take: the shapes' bound, which a plan built in the call allocates,
+    against the slots used, which a plan built once per rig counts."""
+    from dhd_tpu_torch.ops.mghs_pool_cuda import (pool_plan_cuda,
+                                                  pool_plan_plain)
+
+    vt, idx, shape = pool_indices(dev, preset)
+    key_s, order = torch.sort(idx.key, stable=True)
+    args = (key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
+            vt.z_fine.size)
+    before = pool_plan_cuda.launches
+    got = pool_plan_cuda(*args)
+    want = pool_plan_plain(*args)
+    torch.cuda.synchronize()
+    check(pool_plan_cuda.launches == before + 1, "plan launch not counted")
+    check(all(g.shape == w.shape for g, w in zip(got[:5], want[:5]))
+          and got[5] == want[5], f"pool_plan_cuda at {preset}: shapes differ")
+    err = max(float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got[:5], want[:5]))
+    check(err == 0, f"pool_plan_cuda at {preset}: differs from plain by up "
+          f"to {err}")
+    check(all(torch.equal(g, w) for g, w in zip(got, (
+        plan.dix_s, plan.z_s, plan.starts, plan.tasks, plan.splits))),
+        f"pool_plan_cuda at {preset}: not the served plan")
+    ms = time_ms(lambda: pool_plan_cuda(*args))
+    plain_ms = time_ms(lambda: pool_plan_plain(*args))
+    call_us = host_us(lambda: pool_plan_cuda(*args))
+    plain_us = host_us(lambda: pool_plan_plain(*args))
+    dix_s, _, starts, tasks, splits, bound = got
+    p, n_pillars = key_s.numel(), starts.numel() - 1
+    # least time: the sorted keys, the order and seg_vox read once, the
+    # tables and lists written once
+    nbytes = 24 * p + 4 * starts.numel() + 16 * (tasks.shape[0]
+                                                 + splits.shape[0])
+    used = int(splits[:, 2].sum())
+    n_real = int((tasks[:, 0] < n_pillars).sum())
+    slot_mb = (vt.z_fine.size + 1) * vt.out_channels * 4 / 1e6
+    measured = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                "bound_by": "bytes", "host_us": call_us,
+                "plain_host_us": plain_us, "slots_bound": bound,
+                "slots_used": used, "plan_slots": plan.n_slots}
+    kern = kernels.setdefault("pool_plan_cuda", dict(
+        {"name": "pool_plan_cuda", "route": "cuda",
+         "source": "dhd_tpu_torch/csrc/mghs_pool.cu",
+         "replaces": "dhd_tpu/ops/pallas_pool.py:240", "launches": None},
+        **measured, library_ms=None, shapes={}))
+    kern["shapes"][preset] = measured
+    kern["max_abs_err"] = max(kern["max_abs_err"], err)
+    print(f"phase {PHASE_OF[preset]['pool']} ok: pool_plan_cuda vs plain at "
+          f"{preset}: {n_pillars} pillars, P={p}: {n_real} tasks of "
+          f"{tasks.shape[0]} rows, {int((splits[:, 0] < n_pillars).sum())} "
+          f"split pillars of {splits.shape[0]} rows; tables and lists equal "
+          f"(and equal to the served plan's); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {measured['bound_ms']:.4f} ms (bytes, "
+          f"{nbytes / 1e6:.2f} MB); least host time per call {call_us:.1f} "
+          f"us (plain {plain_us:.1f}); scratch slots: {used} used "
+          f"({used * slot_mb:.1f} MB), bound {bound} "
+          f"({bound * slot_mb:.1f} MB), this plan's {plan.n_slots}",
+          flush=True)
 
 
 def phase_serve(dev, kernels, card):
@@ -422,6 +605,52 @@ def phase_serve(dev, kernels, card):
              if busy > 0 else "; device busy: not measured (no device "
              "time in the profiler)"), flush=True)
     del model, plain
+
+
+def phase_serve_uncached(dev, card, counted=(), n_frames: int = 20):
+    """DHD-S frames without the cached plan, as ``cli --what full`` serves
+    them: each frame sorts and plans its points in the call.  The median
+    frame (host wall time to a synchronize), one frame's device busy time
+    and its host syncs.  B1 and each wrapper in ``counted`` must launch
+    once a frame; returns their launches over the frames."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import DHDNet
+    from dhd_tpu_torch.ops import mghs_pool_cuda
+
+    cfg = get_config("dhd_s")
+    model = DHDNet(cfg, dtype=torch.bfloat16, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    rig = synthetic_batch(cfg, batch_size=1, seed=0, with_gt=False)
+    frames = [dict(rig, imgs=np.random.default_rng(100 + k).normal(
+        0, 1, rig["imgs"].shape).astype(np.float32))
+        for k in range(n_frames + 1)]
+    model(frames[0])                               # warm-up frame
+    torch.cuda.synchronize()
+    counted = (mghs_pool_cuda, *counted)
+    for fn in counted:
+        fn.launches = 0
+    frame_ms = []
+    for frame in frames[1:]:
+        t0 = time.perf_counter()
+        out = model(frame)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(out["occ_logits"]).all()),
+              "occ_logits not finite")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(all(n == n_frames for n in launches.values()),
+          f"launches {launches} in {n_frames} frames")
+    busy, top, _ = device_busy_ms(lambda: model(frames[1]))
+    n_sync, sync_at = host_syncs(lambda: model(frames[1]))
+    frame = statistics.median(frame_ms)
+    print(f"phase 3 uncached: DHD-S bf16, {n_frames} frames planned in the "
+          f"call: {frame:.2f} ms/frame median (least "
+          f"{min(frame_ms):.2f}, most {max(frame_ms):.2f}); device busy "
+          f"{busy:.2f} ms a frame; host syncs per frame {n_sync} at "
+          f"{sync_at}; launches {launches}; on {card}", flush=True)
+    del model
+    return launches
 
 
 def stage_ms(model, run, extra=()) -> dict:
@@ -1289,6 +1518,7 @@ def phase_cli(dev, kernels):
     from dhd_tpu_torch.cli.benchmark import main as benchmark
     from dhd_tpu_torch.ops import (mghs_pool_cuda, sorted_segment_sum,
                                    stereo_cost_volume_cuda)
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
 
     runs = [("pool", "dhd_s", ["--iters", "10"]),
             ("pool", "dhd_l", ["--iters", "10"]),
@@ -1298,12 +1528,15 @@ def phase_cli(dev, kernels):
             ("flops", "dhd_s", []),
             ("full", "dhd_s", ["--iters", "5", "--profile",
                                "--profile-ops", "8"])]
-    counted = (sorted_segment_sum, mghs_pool_cuda, stereo_cost_volume_cuda)
-    # the path each run must go through, beyond finite times
-    must = {"pool": (sorted_segment_sum, mghs_pool_cuda),
+    counted = (sorted_segment_sum, mghs_pool_cuda, pool_plan_cuda,
+               stereo_cost_volume_cuda)
+    # the path each run must go through, beyond finite times: pool, stages
+    # and full plan in the call, with B1's plan kernels
+    must = {"pool": (sorted_segment_sum, mghs_pool_cuda, pool_plan_cuda),
             "stream": (mghs_pool_cuda, stereo_cost_volume_cuda),
-            "cv": (stereo_cost_volume_cuda,), "stages": (mghs_pool_cuda,),
-            "full": (mghs_pool_cuda,), "flops": ()}
+            "cv": (stereo_cost_volume_cuda,),
+            "stages": (mghs_pool_cuda, pool_plan_cuda),
+            "full": (mghs_pool_cuda, pool_plan_cuda), "flops": ()}
     for what, preset, extra in runs:
         for fn in counted:
             fn.launches = 0
@@ -1333,6 +1566,9 @@ def phase_cli(dev, kernels):
             for fn in must["pool"]:
                 kernels[fn.__name__].setdefault("launches_by_path", {})[
                     f"cli_pool_{preset}"] = fn.launches
+        if what == "full":
+            kernels["pool_plan_cuda"]["launches_by_path"][
+                f"cli_full_{preset}"] = pool_plan_cuda.launches
         print(f"phase 15 ok: cli --preset {preset} --what {what} "
               f"{' '.join(extra)} in {wall:.1f} s; launches {launches}"
               + "".join(f"\n    {ln}" for ln in text.splitlines()),
@@ -1346,6 +1582,7 @@ def main() -> int:
         return 1
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.ops import cuda_build
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
 
     dev = torch.device("cuda")
     # fp32 comparisons (phase 4) in full fp32: no TF32 in cuDNN or matmul
@@ -1364,20 +1601,28 @@ def main() -> int:
           flush=True)
 
     kernels: dict = {}
-    phase_kernel(dev, kernels)
+    phase_plan(dev, kernels, "dhd_s",
+               phase_kernel(dev, kernels, ptxas=ptxas))
     phase_serve(dev, kernels, card)
+    kernels["pool_plan_cuda"]["launches_by_path"] = {
+        "dhd_s_serve_uncached": phase_serve_uncached(
+            dev, card, (pool_plan_cuda,))["pool_plan_cuda"]}
     phase_tiny(dev)
     phase_cost_volume(dev, kernels, ptxas=ptxas)
-    phase_kernel(dev, kernels, "dhd_m")
+    phase_plan(dev, kernels, "dhd_m",
+               phase_kernel(dev, kernels, "dhd_m", ptxas))
     phase_stream(dev, kernels, card)
     phase_small_stream(dev, get_config("dhd_micro_stereo"), 8)
     phase_attention(dev, kernels, ptxas)
     phase_layer_norm(dev, kernels, ptxas)
     phase_cost_volume(dev, kernels, "dhd_l", ptxas)
-    phase_kernel(dev, kernels, "dhd_l")
+    phase_plan(dev, kernels, "dhd_l",
+               phase_kernel(dev, kernels, "dhd_l", ptxas))
     phase_stream(dev, kernels, card, "dhd_l")
     phase_small_stream(dev, tiny_dhd_l(), 13)
     phase_segment_sum(dev, kernels, ptxas)
+    phase_plan(dev, kernels, "hot",
+               phase_kernel(dev, kernels, "hot", ptxas))
     phase_cli(dev, kernels)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())

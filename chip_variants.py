@@ -6,6 +6,8 @@ source under ``dhd_tpu_torch/csrc/`` with a line edited, built by nvcc into
     python3 chip_variants.py [--variants base,nomask,bias2] [--repeat 2]
     python3 chip_variants.py --kernel cv [--variants base,sametap]
     python3 chip_variants.py --kernel segsum [--variants base,nofix,nostore]
+    python3 chip_variants.py --kernel pool [--variants base,nopoints,nostore]
+        [--pieces 64,256] [--lanes 2x32]
 
 ``--kernel attn`` (the default): the bf16 window-attention kernel (B4),
 ``window_attention.cu``, at DHD-L's four Swin-B stage shapes (shifted and
@@ -32,6 +34,20 @@ first pixel (all L1 hits): what the kernel costs without its tap traffic
 phase 14's cases.  ``base`` is held to phase 14's bar against
 ``sorted_segment_sum_plain``; ``nofix`` skips the second pass and
 ``nostore`` stores no output rows (both timing only): what each costs.
+
+``--kernel pool``: the fused MGHS pooling (B1), ``mghs_pool.cu``, at the
+inputs of phases 2, 6 and 11 (DHD-S, DHD-M, DHD-L) and the hot pillar
+(``chip_smoke.pool_case``), with ptxas's report of its first pass.
+``base`` is held to phase 2's bar (one bf16 ulp, or at DHD-L one ulp
+plus 2^-20 of the terms) against ``mghs_pool_plan_plain``;
+``nopoints`` skips the point walk and writes only zero rows: the write
+floor; ``nostore`` walks the points and stores nothing in the first pass
+(both timing only); ``rows2x`` keeps twice as many feature rows in
+flight.  ``--pieces`` also times ``base`` with the plan's schedule rebuilt
+for each piece size (the most points a warp sums), ``--lanes`` at each
+forced (channels a lane)x(lanes a point), both held to the bar.  Each
+line ends with ``zero_``: ``Tensor.zero_`` of the same vox and bev, the
+card's own rate of writing those bytes.
 """
 import argparse
 import ctypes
@@ -45,6 +61,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 MASK_ADD = """    if (mask_w != nullptr)
       add_rows<NK>(s, mask_w + o0, mask_w + o1, t, nk, N, vec != 0);"""
 SEG_STORE = "store<TO, VEC>(out + static_cast<size_t>(cur) * C + c, acc);"
+POOL_WALK = "for (int base = p0; base < p1; base += 32) {"
 VARIANTS = {  # kernel -> variant -> exact source edits
     "attn": {
         "base": [],
@@ -61,13 +78,22 @@ VARIANTS = {  # kernel -> variant -> exact source edits
                    "cfg.numAttrs = 1;\n  if (C > 0) return 0;")],
         "nostore": [(SEG_STORE, "if (acc[0] == 1234.5f) " + SEG_STORE)],
     },
+    "pool": {
+        "base": [],
+        "nopoints": [(POOL_WALK, POOL_WALK.replace("< p1", "< p0"))],
+        "rows2x": [("kRowsWant = 8 / VEC;", "kRowsWant = 16 / VEC;")],
+        "nostore": [("if (active && grp == 0) {",
+                     "if (active && grp == 0 && acc[0] == 1234.5f) {"),
+                    ("if (!active) continue;", "continue;")],
+    },
 }
-TIMING_ONLY = {"nomask", "bias2", "sametap", "nofix", "nostore"}
+TIMING_ONLY = {"nomask", "bias2", "sametap", "nofix", "nostore", "nopoints"}
 # kernel -> source, and the ptxas lines printed (kernel, instantiation)
 SOURCES = {
     "attn": ("window_attention.cu", ("window_attention_mma_kernel", "<32, 9>")),
     "cv": ("cost_volume.cu", ("cost_volume_kernel", "<13__nv_bfloat16")),
     "segsum": ("segment_sum.cu", None),
+    "pool": ("mghs_pool.cu", ("mghs_pool_kernel", "<")),
 }
 
 
@@ -210,12 +236,89 @@ def main_segsum(names, repeat) -> int:
     return 0
 
 
+def main_pool(names, repeat, pieces, lanes) -> int:
+    """B1's variants at phases 2, 6 and 11's inputs and the hot pillar;
+    then ``base`` with the plan's schedule rebuilt for each piece size in
+    ``pieces`` and at each (channels a lane, lanes a point) in ``lanes``."""
+    import dataclasses
+
+    import chip_smoke
+    from dhd_tpu_torch.ops.mghs_pool_cuda import (_ARGTYPES, _FN,
+                                                  lanes_per_point,
+                                                  mghs_pool_plan_plain,
+                                                  pool_schedule_plain)
+
+    libs = build("pool", names)
+    dev = torch.device("cuda")
+    cases = {preset: chip_smoke.pool_case(dev, preset)
+             for preset in ("dhd_s", "dhd_m", "dhd_l", "hot")}
+    for _ in range(repeat):
+        for preset, (cfg, plan, depth, feat, band_mask) in cases.items():
+            want = mghs_pool_plan_plain(depth, feat, band_mask, plan)
+            terms = mghs_pool_plan_plain(depth, feat.abs(), band_mask, plan)
+            b, dy, dx, dz = plan.grid
+            c = feat.shape[-1]
+            bev = torch.empty((b, dy, dx, c), dtype=feat.dtype, device=dev)
+            vox = torch.empty((b, dy, dx, dz, c), dtype=feat.dtype,
+                              device=dev)
+            row = []
+            runs = [(name, fn, plan) for name, fn in entries(
+                libs, _FN[feat.dtype], _ARGTYPES).items()]
+            for piece in pieces:
+                tasks, splits, n_slots = pool_schedule_plain(
+                    plan.starts, plan.dix_s.numel(), piece)
+                runs.append((f"piece{piece}", runs[0][1], dataclasses.replace(
+                    plan, tasks=tasks, splits=splits, n_slots=n_slots)))
+            runs = [(name, fn, sched, lanes_per_point(feat))
+                    for name, fn, sched in runs] + [
+                (f"{v}x{lp}", runs[0][1], plan, (v, lp)) for v, lp in lanes]
+            for name, fn, sched, vl in runs:
+                scratch = torch.empty(sched.n_slots * (dz + 1) * c,
+                                      dtype=torch.float32, device=dev)
+                def run(fn=fn, sp=sched, scratch=scratch, vl=vl):
+                    return fn(depth.data_ptr(), feat.data_ptr(),
+                              band_mask.data_ptr(), sp.dix_s.data_ptr(),
+                              sp.z_s.data_ptr(), sp.tasks.data_ptr(),
+                              sp.splits.data_ptr(),
+                              scratch.data_ptr(), bev.data_ptr(),
+                              vox.data_ptr(), sp.tasks.shape[0],
+                              sp.splits.shape[0], b * dy * dx, c,
+                              depth.shape[-1], dz, *sp.band_edges,
+                              *vl, torch.cuda.current_stream().cuda_stream)
+                chip_smoke.check(run() == 0, f"{name}: launch failed")
+                torch.cuda.synchronize()
+                if name not in TIMING_ONLY:
+                    ulps = max(chip_smoke.bf16_ulp_diff(bev, want[0]),
+                               chip_smoke.bf16_ulp_diff(vox, want[1]))
+                    frac = max(chip_smoke.sum_error_share(bev, want[0],
+                                                          terms[0]),
+                               chip_smoke.sum_error_share(vox, want[1],
+                                                          terms[1]))
+                    chip_smoke.check(
+                        ulps <= chip_smoke.POOL_ULP_TOL
+                        or (preset == "dhd_l" and frac <= 1),
+                        f"{name} at {preset}: {ulps} ulps, {frac:.3f}")
+                row.append(f"{name} {chip_smoke.time_ms(run):.4f}")
+            row.append("zero_ {:.4f}".format(chip_smoke.time_ms(
+                lambda: (vox.zero_(), bev.zero_()))))
+            print(f"{preset} (P={plan.dix_s.numel()}, busiest pillar "
+                  f"{chip_smoke.pillar_histogram(plan)['max']}, "
+                  f"{int((plan.tasks[:, 0] < b * dy * dx).sum())} tasks): "
+                  + ", ".join(row), flush=True)
+            del want, terms
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("attn", "cv", "segsum"),
+    ap.add_argument("--kernel", choices=("attn", "cv", "segsum", "pool"),
                     default="attn")
     ap.add_argument("--variants", default=None)
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--lanes", default="",
+                    help="pool: also base at these channels x lanes, 2x32")
+    ap.add_argument("--pieces", default="",
+                    help="pool: piece sizes to rebuild the schedule with")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device; nothing run", file=sys.stderr)
@@ -228,6 +331,11 @@ def main() -> int:
         return main_cv(names, args.repeat)
     if args.kernel == "segsum":
         return main_segsum(names, args.repeat)
+    if args.kernel == "pool":
+        return main_pool(names, args.repeat,
+                         [int(x) for x in args.pieces.split(",") if x],
+                         [tuple(int(y) for y in x.split("x"))
+                          for x in args.lanes.split(",") if x])
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.nn.swin import _shift_attn_mask
     from dhd_tpu_torch.ops import window_attention_plain

@@ -263,7 +263,7 @@ def run_pool(args, cfg, dt, dev, batch) -> None:
           lambda: mghs_pool_cuda(depth_px, feat, bmask,
                                  build_pool_plan(idx, vt, depth.shape)),
           args, dev)
-    plan = build_pool_plan(idx, vt, depth.shape)
+    plan = build_pool_plan(idx, vt, depth.shape, fit_scratch=True)
     _show(f"mghs_pool cuda + plan (serving){tag}",
           lambda: mghs_pool_cuda(depth_px, feat, bmask, plan), args, dev)
 

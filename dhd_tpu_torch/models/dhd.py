@@ -127,7 +127,7 @@ def build_batch_pool_plan(cfg: ModelConfig, batch: Dict[str, Any],
     b, n = geom["sensor2keyego"].shape[:2]
     fh, fw = vt.feat_size
     return build_pool_plan(_pool_indices(cfg, geom), vt,
-                           (b, n, vt.D, fh, fw))
+                           (b, n, vt.D, fh, fw), fit_scratch=True)
 
 
 class MGHSTransform(nn.Module):

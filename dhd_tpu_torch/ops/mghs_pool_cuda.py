@@ -10,10 +10,15 @@ bin, ``v = d * feat`` (rounded to the working dtype), adds ``v`` to
 Bound on an H100 at DHD-S shapes: bytes.  Writing ``vox`` (640,000 x 64
 bf16 = 81.9 MB) and ``bev`` (5.1 MB) dominates; the sorted point indices add
 about 1.5 MB and the per-pixel tables (4,224 rows) stay in L2: about 27 us at
-3.35 TB/s.  Design (see the source): one block per BEV pillar walks the
-pillar's sorted interval with one thread per channel, keeps the Dz x C vox
-sums in shared memory and writes every output element once, so it needs no
-atomics and no zero-fill pass.
+3.35 TB/s.  Design (see the source): a warp per task of the plan's schedule
+(:func:`pool_schedule_plain`; on the card :func:`pool_plan_cuda` builds
+it with the rest of the plan, three small kernels of the same source), a
+pillar or a piece of at most 128 points of a longer one, the heaviest first; a point's
+row lies across a group of lanes (:func:`lanes_per_point`), so a warp sums
+several points a step; the bev and current vox row sums stay in registers
+and each row is stored once, zeros included, as z moves on; the pieces of
+a split pillar leave fp32 partial blocks that a second pass adds in order.
+No atomics, no zero-fill pass, the same sums on every run.
 
 :func:`mghs_pool_cuda` is differentiable in ``depth`` and ``feat``
 (:class:`_MGHSPool`): the backward mirrors the JAX package's
@@ -29,16 +34,200 @@ import torch
 
 from dhd_tpu_torch.ops.cuda_build import load
 from dhd_tpu_torch.ops.grad_mode import records_grad
-from dhd_tpu_torch.ops.voxel_pool import PoolPlan
+from dhd_tpu_torch.ops.voxel_pool import PoolPlan, sorted_tables
 
 _FN = {torch.bfloat16: "mghs_pool_bf16", torch.float32: "mghs_pool_f32"}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_MAX_SMEM = 48 * 1024        # without opting in to more dynamic smem
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_void_p])
+
+# the most points one warp of the pooling kernel sums: a longer pillar is
+# split over several warps (:func:`pool_schedule_plain`)
+POOL_PIECE = 128
+_MAX_PIECE = 256                    # csrc/mghs_pool.cu kMaxPiece
+_PLAN_TILE = 1024                   # csrc/mghs_pool.cu kPlanTile: pillars
+#                                     a block of the plan's counts
+
+
+def lanes_per_point(feat: torch.Tensor) -> Tuple[int, int]:
+    """The kernel's (channels a lane, lanes a point) for ``feat``'s rows:
+    the widest of 4, 2, 1 channels that divides C and keeps the rows'
+    alignment, and the fewest of 8, 16, 32 lanes that hold a row (32 then
+    take C in several passes): a warp sums 32 / lanes points a step."""
+    c, esz = feat.shape[-1], feat.element_size()
+    vec = 4
+    while vec > 1 and (c % vec or feat.data_ptr() % (vec * esz)):
+        vec //= 2
+    lanes = 8
+    while lanes < 32 and lanes * vec < c:
+        lanes *= 2
+    return vec, lanes
+
+
+def _schedule_sizes(n_pillars: int, n_points: int, piece: int
+                    ) -> Tuple[int, int, int]:
+    """(tasks, split entries, scratch slots) of a schedule, from the shapes
+    alone: a pillar of n points takes max(1, ceil(n / piece)) tasks, and a
+    split pillar (n > piece) ceil(n / piece) <= 2 * floor(n / piece)
+    slots."""
+    return (n_pillars + n_points // piece,
+            min(n_pillars, n_points // (piece + 1)), 2 * (n_points // piece))
+
+
+def pool_plan_cuda(key_s: torch.Tensor, order: torch.Tensor,
+                   seg_vox: torch.Tensor, num_seg_vox: int,
+                   cams_shape: Tuple[int, int, int, int, int], dz: int,
+                   piece: int = POOL_PIECE) -> Tuple:
+    """The plan's tensors from the points sorted by key, the kernel's
+    schedule included (:func:`pool_schedule_plain` says what it holds).
+
+    Args:
+      key_s: (P,) int32 sorted keys (``torch.sort(idx.key, stable=True)``).
+      order: (P,) int64 the sort's indices.
+      seg_vox: (P,) int32 :attr:`PoolIndices.seg_vox`.
+      num_seg_vox, cams_shape, dz: as :func:`build_pool_plan` has them.
+    Returns:
+      dix_s, z_s, starts, tasks, splits, n_slots: :class:`PoolPlan`'s.
+
+    On a CUDA tensor this launches the plan kernels of
+    ``csrc/mghs_pool.cu`` (three launches, one host call) or raises; a
+    tensor on the CPU takes :func:`pool_plan_plain`.  Nothing is read back
+    to the host, so a frame that plans in the call does not wait.
+    ``pool_plan_cuda.launches`` counts host calls.
+    """
+    if key_s.device.type == "cpu":
+        return pool_plan_plain(key_s, order, seg_vox, num_seg_vox,
+                               cams_shape, dz, piece)
+    if key_s.device.type != "cuda":
+        raise ValueError(f"unsupported device {key_s.device}")
+    if not 1 <= piece <= _MAX_PIECE:
+        raise ValueError(f"piece={piece}: want 1..{_MAX_PIECE}")
+    p = key_s.numel()
+    for name, t, dtype in (("key_s", key_s, torch.int32),
+                           ("order", order, torch.int64),
+                           ("seg_vox", seg_vox, torch.int32)):
+        if t.dtype != dtype or t.shape != (p,) or not t.is_contiguous() \
+                or t.device != key_s.device:
+            raise ValueError(f"{name}: want a contiguous {dtype} ({p},) on "
+                             f"{key_s.device}")
+    _, _, d, fh, fw = cams_shape
+    n_pillars = num_seg_vox // dz
+    if p < 1 or n_pillars < 1 or p * d >= 2 ** 31:
+        raise ValueError(f"unsupported P={p}, {n_pillars} pillars")
+    n_tasks, n_splits, n_slots = _schedule_sizes(n_pillars, p, piece)
+    n_tiles = -(-n_pillars // _PLAN_TILE)
+    # one allocation: the 16-byte rows first
+    out = torch.empty(4 * (n_tasks + n_splits) + 2 * p + n_pillars + 1
+                      + n_tiles * (piece + 3), dtype=torch.int32,
+                      device=key_s.device)
+    tasks, splits, dix_s, z_s, starts, counts = out.split(
+        [4 * n_tasks, 4 * n_splits, p, p, n_pillars + 1,
+         n_tiles * (piece + 3)])
+    err = _entry("plan")(
+        key_s.data_ptr(), order.data_ptr(), seg_vox.data_ptr(), p, n_pillars,
+        dz, num_seg_vox, d, fh * fw, piece, dix_s.data_ptr(), z_s.data_ptr(),
+        starts.data_ptr(), tasks.data_ptr(), n_tasks, splits.data_ptr(),
+        n_splits, counts.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(key_s.get_device()))
+    if err != 0:
+        raise RuntimeError(f"mghs_pool plan launch failed: CUDA error {err}")
+    pool_plan_cuda.launches += 1
+    return (dix_s, z_s, starts, tasks.view(n_tasks, 4),
+            splits.view(n_splits, 4), n_slots)
+
+
+pool_plan_cuda.launches = 0
+
+
+def pool_plan_plain(key_s: torch.Tensor, order: torch.Tensor,
+                    seg_vox: torch.Tensor, num_seg_vox: int,
+                    cams_shape: Tuple[int, int, int, int, int], dz: int,
+                    piece: int = POOL_PIECE) -> Tuple:
+    """Plain PyTorch version of :func:`pool_plan_cuda`: the CPU plan's
+    tables (:func:`~dhd_tpu_torch.ops.voxel_pool.sorted_tables`) and
+    :func:`pool_schedule_plain`."""
+    dix_s, z_s, starts = sorted_tables(key_s, order, seg_vox, num_seg_vox,
+                                       cams_shape, dz)
+    return (dix_s, z_s, starts) + pool_schedule_plain(starts, key_s.numel(),
+                                                      piece)
+
+
+def pool_schedule_plain(starts: torch.Tensor, n_points: int,
+                        piece: int = POOL_PIECE
+                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The pooling kernel's work split, in torch ops on any device and with
+    no host read: one task per warp, a pillar's points cut into pieces of
+    at most ``piece`` points.
+
+    A pillar of at most ``piece`` points is one task, which writes the
+    pillar's rows.  A longer one is ``ceil(n / piece)`` tasks; each writes
+    an fp32 partial block (its Dz vox rows and its bev row) into its own
+    scratch slot, and the kernel's second pass adds a pillar's blocks in
+    slot order.  The sizes follow the shapes (``n_points`` is P, in-grid
+    or not), so the lists end in padding that the kernel skips.
+
+    Returns:
+      tasks: (n_pillars + P // piece, 4) int32 (pillar, first point, end
+        point, slot or -1), the most points first (eight warps a block
+        then have about as much to do, and the heaviest start first), ties
+        in pillar and point order; then padding rows (n_pillars, P_in,
+        P_in, -1).  A split pillar's slots follow its pieces' point order.
+      splits: (min(n_pillars, P // (piece + 1)), 4) int32 (pillar, first
+        slot, pieces, 0) of the pillars of more than ``piece`` points in
+        order, then padding rows (n_pillars, 0, 0, 0).
+      n_slots: 2 * (P // piece), at least the slots used.
+    """
+    n_pillars = starts.numel() - 1
+    n_tasks, n_splits, n_slots = _schedule_sizes(n_pillars, n_points, piece)
+    s = starts.long()
+    pieces = (s[1:] - s[:-1] + (piece - 1)).div_(
+        piece, rounding_mode="floor").clamp_(min=1)
+    last = pieces.cumsum(0)                 # one past each pillar's tasks
+    split = pieces > 1
+    n_split = pieces * split
+    slots_end = n_split.cumsum(0)
+    # per pillar: its first point, its end, its first slot (-1 unless
+    # split), its first task
+    table = torch.stack([s[:-1], s[1:],
+                         torch.where(split, slots_end - n_split, -1),
+                         last - pieces], -1)
+    t = torch.arange(n_tasks, device=s.device)
+    pillar = torch.searchsorted(last, t, right=True)   # n_pillars: padding
+    real = pillar < n_pillars
+    row = table[pillar.clamp_(max=n_pillars - 1)]
+    k = t - row[:, 3]                       # the task's piece of its pillar
+    # padding runs past its last pillar: both ends clamp to P_in
+    p0 = torch.minimum(row[:, 0] + k * piece, row[:, 1])
+    p1 = torch.minimum(p0 + piece, row[:, 1])
+    slot = torch.where(real & (row[:, 2] >= 0), row[:, 2] + k, -1)
+    pillar = torch.where(real, pillar, n_pillars)
+    order = torch.sort((p1 - p0) * 2 + real, descending=True,
+                       stable=True).indices
+    tasks = torch.stack([pillar, p0, p1, slot], -1)[order].to(torch.int32)
+
+    # the split pillars in order, at their rank among them; padding rows
+    # (n_pillars, 0, 0, 0), the others dropped into a spare last row
+    splits = torch.zeros((n_splits + 1, 4), dtype=torch.int32,
+                         device=s.device)
+    splits[:, 0] = n_pillars
+    q = torch.arange(n_pillars, device=s.device)
+    rank = torch.where(split, split.cumsum(0) - 1, n_splits)
+    splits[rank] = torch.stack(
+        [q, slots_end - n_split, pieces, q * 0], -1).to(torch.int32)
+    return tasks, splits[:n_splits], n_slots
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    """The kernel's C entry for ``dtype``, its ctypes signature set once."""
+def _entry(dtype):
+    """The kernel's C entry for ``dtype`` (or the plan's, for ``"plan"``),
+    its ctypes signature set once."""
+    if dtype == "plan":
+        fn = load("mghs_pool").mghs_pool_plan
+        fn.argtypes = _PLAN_ARGTYPES
+        fn.restype = ctypes.c_int
+        return fn
     fn = getattr(load("mghs_pool"), _FN[dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -126,13 +315,21 @@ def _forward(depth: torch.Tensor, feat: torch.Tensor,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     n_pillars = b * dy * dx
     p = plan.dix_s.numel()
-    for name, t, n in (("dix_s", plan.dix_s, p), ("z_s", plan.z_s, p),
-                       ("starts", plan.starts, n_pillars + 1)):
+    if plan.tasks is None or plan.splits is None:
+        raise ValueError("plan has no kernel schedule: build the plan from "
+                         "tensors on the card")
+    # tasks and splits are read as int4: 16-byte rows
+    for name, t, shape in (("dix_s", plan.dix_s, (p,)),
+                           ("z_s", plan.z_s, (p,)),
+                           ("starts", plan.starts, (n_pillars + 1,)),
+                           ("tasks", plan.tasks, (plan.tasks.shape[0], 4)),
+                           ("splits", plan.splits, (plan.splits.shape[0], 4))):
         if t.dtype != torch.int32 or t.device != feat.device \
-                or t.numel() != n or not t.is_contiguous():
-            raise ValueError(f"plan.{name}: want {n} contiguous int32 on "
-                             f"{feat.device}")
-    if not 0 < c <= 1024 or 4 * (dz * c + 3 * c) > _MAX_SMEM:
+                or tuple(t.shape) != shape or not t.is_contiguous() \
+                or (len(shape) == 2 and t.data_ptr() % 16 != 0):
+            raise ValueError(f"plan.{name}: want a contiguous int32 {shape} "
+                             f"on {feat.device}, rows 16-byte aligned")
+    if c < 1 or dz < 1:
         raise ValueError(f"unsupported C={c}, Dz={dz}")
     if pix_shape.numel() * d >= 2 ** 31:
         raise ValueError("depth table too large for int32 indices")
@@ -140,11 +337,16 @@ def _forward(depth: torch.Tensor, feat: torch.Tensor,
     bev = torch.empty((b, dy, dx, c), dtype=feat.dtype, device=feat.device)
     vox = torch.empty((b, dy, dx, dz, c), dtype=feat.dtype,
                       device=feat.device)
+    # fp32 partial blocks (Dz vox rows and a bev row) of split pillars
+    scratch = torch.empty(plan.n_slots * (dz + 1) * c, dtype=torch.float32,
+                          device=feat.device)
     e0, e1 = plan.band_edges
     err = _entry(feat.dtype)(
         depth.data_ptr(), feat.data_ptr(), band_mask.data_ptr(),
-        plan.dix_s.data_ptr(), plan.z_s.data_ptr(), plan.starts.data_ptr(),
-        bev.data_ptr(), vox.data_ptr(), n_pillars, c, d, dz, e0, e1,
+        plan.dix_s.data_ptr(), plan.z_s.data_ptr(), plan.tasks.data_ptr(),
+        plan.splits.data_ptr(), scratch.data_ptr(), bev.data_ptr(),
+        vox.data_ptr(), plan.tasks.shape[0], plan.splits.shape[0], n_pillars,
+        c, d, dz, e0, e1, *lanes_per_point(feat),
         torch._C._cuda_getCurrentRawStream(feat.get_device()))
     if err != 0:
         raise RuntimeError(f"mghs_pool kernel launch failed: CUDA error {err}")

@@ -20,7 +20,7 @@ segment_sum_pooling` (kernel B2 on the GPU).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,6 +66,14 @@ class PoolPlan:
     starts: torch.Tensor      # (B*Dy*Dx + 1,) int32 pillar intervals
     grid: Tuple[int, int, int, int]          # (B, Dy, Dx, Dz)
     band_edges: Tuple[int, int]              # band(z) = (z >= e0) + (z >= e1)
+    # the CUDA kernel's schedule (ops/mghs_pool_cuda.py:
+    # pool_schedule_plain), geometry only; a plan on the card has it, a
+    # CPU plan does not
+    tasks: Optional[torch.Tensor] = None   # (T, 4) int32 (pillar, first
+    #                                        point, end, slot)
+    splits: Optional[torch.Tensor] = None  # (S, 4) int32 (pillar, first
+    #                                        slot, pieces, 0)
+    n_slots: int = 0          # fp32 partial blocks the kernel may write
 
 
 def compute_pool_indices(coords: torch.Tensor, vt: ViewTransformConfig
@@ -151,29 +159,54 @@ def mghs_pool(depth: torch.Tensor, feat: torch.Tensor,
 
 
 def build_pool_plan(idx: PoolIndices, vt: ViewTransformConfig,
-                    cams_shape: Tuple[int, int, int, int, int]) -> PoolPlan:
-    """Sort the points by voxel key once and find each pillar's interval.
+                    cams_shape: Tuple[int, int, int, int, int],
+                    fit_scratch: bool = False) -> PoolPlan:
+    """Sort the points by voxel key once and find each pillar's interval;
+    on the card, also the kernel's schedule, all by one call of
+    :func:`~dhd_tpu_torch.ops.mghs_pool_cuda.pool_plan_cuda`.
 
     Args:
       cams_shape: (B, N, D, fH, fW) of the depth tensor.
+      fit_scratch: count the scratch slots the schedule uses (one read
+        back to the host, for a plan built once and kept) instead of
+        bounding them by the shapes.
     """
-    b, n, d, fh, fw = cams_shape
+    b = cams_shape[0]
     dz = vt.z_fine.size
-    hw = fh * fw
     key_s, order = torch.sort(idx.key, stable=True)
+    s1, s2, _ = vt.slab_sizes
+    plan = dict(grid=(b, vt.y.size, vt.x.size, dz), band_edges=(s1, s1 + s2))
+    if not key_s.is_cuda:
+        dix_s, z_s, starts = sorted_tables(key_s, order, idx.seg_vox,
+                                           idx.num_seg_vox, cams_shape, dz)
+        return PoolPlan(dix_s=dix_s, z_s=z_s, starts=starts, **plan)
+    # the kernel module imports PoolPlan from here
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+    dix_s, z_s, starts, tasks, splits, n_slots = pool_plan_cuda(
+        key_s, order, idx.seg_vox, idx.num_seg_vox, cams_shape, dz)
+    if fit_scratch:
+        n_slots = int(splits[:, 2].sum())
+    return PoolPlan(dix_s=dix_s, z_s=z_s, starts=starts, tasks=tasks,
+                    splits=splits, n_slots=n_slots, **plan)
+
+
+def sorted_tables(key_s: torch.Tensor, order: torch.Tensor,
+                  seg_vox: torch.Tensor, num_seg_vox: int,
+                  cams_shape: Tuple[int, int, int, int, int], dz: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A plan's ``dix_s``, ``z_s`` and ``starts`` from the points sorted by
+    key (``key_s``, and ``order`` the sort's indices), in torch ops."""
+    _, _, d, fh, fw = cams_shape
+    hw = fh * fw
     # point id in (B, N, D, fH, fW) order -> pixel-major depth-table index
     cam = order // (d * hw)
     dix_s = (cam * hw + order % hw) * d + (order // hw) % d
-    z_ok = idx.seg_vox[order] != idx.num_seg_vox
+    z_ok = seg_vox[order] != num_seg_vox
     z_s = torch.where(z_ok, key_s % dz, torch.full_like(key_s, -1))
-    n_pillars = idx.num_seg_vox // dz
-    bounds = torch.arange(n_pillars + 1, dtype=key_s.dtype,
+    bounds = torch.arange(num_seg_vox // dz + 1, dtype=key_s.dtype,
                           device=key_s.device) * dz
     starts = torch.searchsorted(key_s, bounds, out_int32=True)
-    s1, s2, _ = vt.slab_sizes
-    return PoolPlan(dix_s=dix_s.to(torch.int32), z_s=z_s.to(torch.int32),
-                    starts=starts, grid=(b, vt.y.size, vt.x.size, dz),
-                    band_edges=(s1, s1 + s2))
+    return dix_s.to(torch.int32), z_s.to(torch.int32), starts
 
 
 def bev_pool(feats: torch.Tensor, coords: torch.Tensor, b: int, dz: int,

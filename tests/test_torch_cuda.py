@@ -79,6 +79,217 @@ def test_mghs_pool_kernel_rejects_bad_inputs(cuda):
     assert mghs_pool_cuda.launches == before
 
 
+POOL_LAYOUTS = ("uniform", "uniform_piece8", "hot", "one_row", "none",
+                "z_out", "gates_off")
+
+
+def _pool_case(dev, dtype, layout, c=8, seed=11, fit_scratch=False,
+               indices=False):
+    """4,096 points (1 sample, 8 cameras of 4x16 pixels, 8 depth bins) on
+    the tiny grid, with a BEV z range taller than the fine grid so that some
+    points reach bev only:
+
+    - ``uniform``: random points, some outside the grid, random gates;
+      ``uniform_piece8`` the same with a schedule of 8-point pieces (many
+      pillars split);
+    - ``hot``: every point in one pillar, at random heights;
+    - ``one_row``: every point in one pillar and one fine z row;
+    - ``none``: no point in the grid;
+    - ``z_out``: every point above the fine grid (z_s = -1);
+    - ``gates_off``: random points, every gate off.
+
+    ``fit_scratch`` builds the plan with its scratch slots counted;
+    ``indices`` returns the layout's (vt, PoolIndices, cams_shape)
+    instead of the plan and inputs.
+    """
+    import dataclasses
+
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_schedule_plain
+
+    vt = ViewTransformConfig(input_size=(64, 256), downsample=16,
+                             depth=GridConfig(1.0, 9.0, 1.0),
+                             x=GridConfig(-4.0, 4.0, 0.4),
+                             y=GridConfig(-4.0, 4.0, 0.4),
+                             z_full=GridConfig(-3.0, 7.0, 10.0),
+                             out_channels=c)
+    rng = np.random.default_rng(seed)
+    b, n, (fh, fw) = 1, 8, vt.feat_size
+    coords = rng.uniform(-5.0, 5.0, (b, n, vt.D, fh, fw, 3))
+    coords[..., 2] = rng.uniform(-3.0, 7.0, coords[..., 2].shape)
+    if layout in ("hot", "one_row"):
+        coords[..., :2] = (0.1, -0.3)
+    if layout == "one_row":
+        coords[..., 2] = 1.1
+    if layout == "none":
+        coords[..., 0] = 100.0
+    if layout == "z_out":
+        coords[..., 2] = 6.0
+    idx = compute_pool_indices(
+        torch.tensor(coords, dtype=torch.float32, device=dev), vt)
+    if indices:
+        return vt, idx, (b, n, vt.D, fh, fw)
+    plan = build_pool_plan(idx, vt, (b, n, vt.D, fh, fw),
+                           fit_scratch=fit_scratch)
+    if layout == "uniform_piece8":
+        tasks, splits, n_slots = pool_schedule_plain(
+            plan.starts, plan.dix_s.numel(), piece=8)
+        plan = dataclasses.replace(plan, tasks=tasks, splits=splits,
+                                   n_slots=n_slots)
+    band = rng.integers(0, 4, (b, n, fh, fw))
+    gates = np.stack([band == k for k in range(3)], axis=-1)
+    if layout == "gates_off":
+        gates[:] = False
+    depth = torch.softmax(torch.tensor(
+        rng.normal(0, 2, (b, n, fh, fw, vt.D)), device=dev), -1)
+    args = [depth, rng.normal(0, 1, (b, n, fh, fw, c)), gates]
+    return [torch.as_tensor(a, device=dev).to(dtype) for a in args], plan
+
+
+def _assert_pool_close(got, want, terms, dtype):
+    """fp32 within 1e-5, bf16 within one bf16 ulp (2^-7 relative), each
+    plus 2^-20 of the summed |terms| (a few thousand fp32 terms a pillar
+    sum in another order here)."""
+    for g, w, a in zip(got, want, terms):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        g, w = g.float(), w.float()
+        tol = (1e-5 if dtype == torch.float32 else 2 ** -7 * w.abs()) \
+            + 2 ** -20 * a.float()
+        assert bool(((g - w).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", POOL_LAYOUTS)
+def test_mghs_pool_kernel_layouts(cuda, dtype, layout):
+    """Each layout against the plain version; the empty ones exactly 0."""
+    args, plan = _pool_case(cuda, dtype, layout)
+    before = mghs_pool_cuda.launches
+    got = mghs_pool_cuda(*args, plan)
+    assert mghs_pool_cuda.launches == before + 1
+    want = mghs_pool_plan_plain(*args, plan)
+    terms = mghs_pool_plan_plain(args[0], args[1].abs(), args[2], plan)
+    torch.cuda.synchronize()
+    _assert_pool_close(got, want, terms, dtype)
+    bev, vox = got
+    per_pillar = plan.starts[1:] - plan.starts[:-1]
+    if layout == "none":
+        assert int(plan.starts[-1]) == 0
+        assert not bev.any() and not vox.any()
+    elif layout in ("z_out", "gates_off"):
+        assert not vox.any() and bev.any()
+    else:
+        assert vox.any()
+    if layout in ("hot", "one_row"):
+        assert int(per_pillar.max()) == plan.dix_s.numel() == 4096
+        assert int((vox.float().abs().sum(-1) > 0).sum()) \
+            == (1 if layout == "one_row" else 16)
+    if layout == "uniform_piece8":
+        assert int((per_pillar > 8).sum()) > 10
+
+
+@pytest.mark.parametrize("c", [1, 6, 8, 9, 17, 18, 24, 34, 64, 72, 128,
+                               136, 256, 520])
+def test_mghs_pool_kernel_widths(cuda, c):
+    """Every width the wrapper takes: 1, 2 or 4 channels a lane, 8, 16 or
+    32 lanes a point, in one or more passes over the channels; split (hot)
+    and whole (uniform) pillars."""
+    for layout, dtype in (("hot", torch.float32), ("uniform_piece8",
+                                                   torch.float32),
+                          ("uniform", torch.bfloat16)):
+        args, plan = _pool_case(cuda, dtype, layout, c=c)
+        got = mghs_pool_cuda(*args, plan)
+        want = mghs_pool_plan_plain(*args, plan)
+        terms = mghs_pool_plan_plain(args[0], args[1].abs(), args[2], plan)
+        torch.cuda.synchronize()
+        _assert_pool_close(got, want, terms, dtype)
+
+
+def test_mghs_pool_kernel_rejects_no_channels(cuda):
+    (depth, feat, band_mask), plan = _pool_case(cuda, torch.float32,
+                                                "uniform")
+    before = mghs_pool_cuda.launches
+    with pytest.raises(ValueError, match="C=0"):
+        mghs_pool_cuda(depth, feat[..., :0].contiguous(), band_mask, plan)
+    with pytest.raises(ValueError, match="tasks"):
+        import dataclasses
+        mghs_pool_cuda(depth, feat, band_mask, dataclasses.replace(
+            plan, tasks=plan.tasks[:, :3].contiguous()))
+    assert mghs_pool_cuda.launches == before
+
+
+@pytest.mark.parametrize("piece", [1, 8, 128, 256])
+@pytest.mark.parametrize("layout", ["uniform", "hot", "one_row", "none"])
+def test_pool_plan_kernel_matches_plain(cuda, layout, piece):
+    """The plan kernels give the plain version's tables and lists exactly
+    (the same order, slots and padding) and count one launch; the plan's
+    fitted slot count is the slots its split pillars use."""
+    from dhd_tpu_torch.ops.mghs_pool_cuda import (pool_plan_cuda,
+                                                  pool_plan_plain)
+    vt, idx, shape = _pool_case(cuda, torch.float32, layout, indices=True)
+    key_s, order = torch.sort(idx.key, stable=True)
+    args = (key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
+            vt.z_fine.size, piece)
+    before = pool_plan_cuda.launches
+    got = pool_plan_cuda(*args)
+    assert pool_plan_cuda.launches == before + 1
+    want = pool_plan_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:5], want[:5]):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+    assert got[5] == want[5]
+    if piece == 128:
+        _, plan = _pool_case(cuda, torch.float32, layout)
+        _, fitted = _pool_case(cuda, torch.float32, layout, fit_scratch=True)
+        assert fitted.n_slots == int((plan.tasks[:, 3] >= 0).sum())
+        assert fitted.n_slots <= plan.n_slots
+        assert torch.equal(fitted.tasks, plan.tasks)
+
+
+def test_pool_plan_kernel_rejects_bad_inputs(cuda):
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+    vt, idx, shape = _pool_case(cuda, torch.float32, "uniform", indices=True)
+    key_s, order = torch.sort(idx.key, stable=True)
+    args = [key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
+            vt.z_fine.size]
+    before = pool_plan_cuda.launches
+    for piece in (0, 257):
+        with pytest.raises(ValueError, match="piece"):
+            pool_plan_cuda(*args, piece)
+    with pytest.raises(ValueError, match="order"):
+        pool_plan_cuda(key_s, order.int(), *args[2:])
+    with pytest.raises(ValueError, match="key_s"):
+        pool_plan_cuda(key_s.long(), *args[1:])
+    assert pool_plan_cuda.launches == before
+
+
+def test_mghs_pool_kernel_needs_a_schedule(cuda):
+    """A plan without the kernel's schedule (as a CPU plan is) is refused
+    on the card, not pooled plainly."""
+    import dataclasses
+    args, plan = _pool_case(cuda, torch.float32, "uniform")
+    before = mghs_pool_cuda.launches
+    with pytest.raises(ValueError, match="schedule"):
+        mghs_pool_cuda(*args, dataclasses.replace(plan, tasks=None))
+    assert mghs_pool_cuda.launches == before
+
+
+@pytest.mark.parametrize("layout", ["hot", "uniform_piece8"])
+def test_mghs_pool_kernel_bit_identical(cuda, layout):
+    """Two calls give the same bits: split pillars are added in slot
+    order, with no atomics; so does a plan whose scratch is fitted to the
+    slots it uses."""
+    args, plan = _pool_case(cuda, torch.bfloat16, layout, c=64)
+    _, fitted = _pool_case(cuda, torch.bfloat16, layout, c=64,
+                           fit_scratch=True)
+    first = mghs_pool_cuda(*args, plan)
+    second = mghs_pool_cuda(*args, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    if layout == "hot":
+        assert 0 < fitted.n_slots < plan.n_slots
+        third = mghs_pool_cuda(*args, fitted)
+        assert all(torch.equal(a, b) for a, b in zip(first, third))
+
+
 def _cv_inputs(dev, dtype, c, seed=3, bn=2, hs=16, ws=40):
     """A rig with ~1 deg of yaw and a forward step, rectified features
     (exact zeros, as after a ReLU) and the plan of 16 depth bins."""
