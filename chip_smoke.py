@@ -91,14 +91,42 @@ Phases, one line each; any failure raises and exits non-zero:
    DHD-M (its frames
    must ship ``cv_static``, and B1 and B3 must launch), ``--what cv`` at
    DHD-L,
-   ``--what stages`` and ``--what flops`` at DHD-S, and ``--what full
+   ``--what stages`` and ``--what flops`` at DHD-S, ``--what full
    --profile`` at DHD-S (stages and full plan in the call: B1 and its
-   plan kernels must launch); every time it prints must be finite.
+   plan kernels must launch), and ``--what train`` at DHD-S, B=4, with
+   and without ``--pool-plan`` (B1 and its plan kernels must launch, the
+   losses be finite); every time it prints must be finite;
+16. training: DHD-S at full width in fp32, B=4 (ResNet-50 with remat,
+   HeightNet with DCN and ASPP, dropout from a generator), synthetic data
+   with GT on the device, 2 warm-up and 5 timed train steps (forward in
+   train mode, losses, backward through B1's autograd.Function with its
+   plan built in the call, clip, AdamW, EMA) in PyTorch's default TF32
+   mode, which the line states: ms/step, samples/s, peak memory, every
+   loss and grad_norm finite, the EMA counter, B1 and its plan kernels
+   exactly once a step; one step's device busy time, idle share and top
+   kernels (``profiling.trace_device``) and its host syncs; then a
+   checkpoint loaded into a new model (its params bit for bit the
+   saved ones), whose next step gives the live run's losses bit for bit
+   and AdamW's first moment within 1e-3; then B1 and its plan kernels
+   against their plain versions at that step's own fp32 B=4 inputs and
+   keys (B1 within 1e-5 plus 2^-20 of the terms, two calls
+   bit-identical; the plan's tables equal), with their times;
+17. one train step at the full learning rate of dhd_tiny (dropout off)
+   and dhd_micro_stereo (B3 in the forward) on the GPU against the same
+   step on the CPU, TF32 off: losses within 1e-4; gradients and AdamW's
+   moments held in rel-L2 (the whole, the median and the worst tensor)
+   to bars 2.5-6x the readings, beside a control (the CPU's step on
+   images one part in 2^22 larger); the GPU's update within 1e-5 of a
+   learning rate of AdamW's formula on its own moments.
+
+Phases 4, 8, 13 and 17 compare fp32 on the GPU with the CPU and turn TF32
+off in cuDNN and matmul for their run; the others run in PyTorch's
+defaults.
 
 Then one JSON line listing the kernels B1-B5 and B1's plan kernels
 (each shape's numbers under
-``shapes``, launches per served path and per CLI run under
-``launches_by_path``), the
+``shapes``, launches per served path, per CLI run and over phase 16's
+timed train steps under ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
@@ -109,6 +137,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -122,6 +151,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 POOL_ULP_TOL = 1            # kernel vs plain: fp32 sum order only
+POOL_F32_ATOL = 1e-5        # fp32 B1 vs plain, plus 2^-20 of the terms
 SERVE_REL_TOL = 2e-2        # bf16 kernel path vs bf16 plain path, of peak
 SERVE_ARGMAX_MIN = 0.999
 TINY_REL_TOL = 2e-4         # fp32 GPU vs fp32 CPU, of peak
@@ -140,10 +170,25 @@ TERM_TOL = 2.0 ** -20       # B5 (and B1 at DHD-L) vs plain, per element:
 LN_FLOPS = 8                # per element: x, x^2 sums; sub, mul, fma, ...
 # the phase that prints each check, by preset
 PHASE_OF = {"dhd_s": {"pool": 2}, "hot": {"pool": 14},
+            "dhd_s_train": {"pool": 16},
             "dhd_m": {"pool": 6, "cv": 5, "stream": 7},
             "dhd_l": {"pool": 11, "cv": 11, "stream": 12}}
 SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device clock ahead of each timed call
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5    # DHD-S train steps, phase 16
+TRAIN_LOSS_RTOL = 1e-4      # GPU vs CPU fp32 train-step losses, phase 17
+TRAIN_RESUME_TOL = 3e-5     # grad_norm of a resumed step vs the live one
+#                             (the backward's atomics: 9.7e-8 to 6.9e-6)
+RESUME_MOMENT_TOL = 1e-3    # exp_avg rel-L2 of a resumed step vs the live
+#                             one (the backward's atomics: 1.8e-4)
+GRAD_TOLS = (1e-2, 1e-2, 1e-1)  # phase 17, GPU vs CPU, rel-L2 of the
+#                                 gradient and AdamW's first moment: whole,
+#                                 median tensor, worst tensor (2.5-6x the
+#                                 readings and the control's: PERF.md)
+SQ_TOLS = (1e-2, 2e-2, 1e-1)    # AdamW's second moment, ~g^2
+UPDATE_LR_TOL = 1e-5        # phase 17: the step's update against AdamW's
+#                             formula on its own moments, in learning rates
+#                             (1.8e-7 on the H100)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -241,12 +286,13 @@ def rel_to_peak(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) / max(1e-3, float(b.abs().max()))
 
 
-def sum_error_share(y_k, y_p, terms) -> float:
-    """The largest |y_k - y_p| as a share of one bf16 ulp of y_p plus
-    ``TERM_TOL`` of ``terms``, the summed magnitudes behind each output."""
+def sum_error_share(y_k, y_p, terms, atol=None) -> float:
+    """The largest |y_k - y_p| as a share of one bf16 ulp of y_p (or of
+    ``atol``) plus ``TERM_TOL`` of ``terms``, the summed magnitudes behind
+    each output."""
     yp = y_p.float()
-    ulp = torch.where(yp == 0, 0.0,
-                      torch.exp2(torch.floor(torch.log2(yp.abs())) - 7))
+    ulp = atol if atol is not None else torch.where(
+        yp == 0, 0.0, torch.exp2(torch.floor(torch.log2(yp.abs())) - 7))
     tol = ulp + TERM_TOL * terms.float()
     diff = (y_k.float() - yp).abs()
     return float(torch.where(diff > 0, diff / tol, 0.0).max())
@@ -336,14 +382,18 @@ def pool_case(dev, preset):
     return cfg, plan, depth, feat, band_mask
 
 
-def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
-    """B1 kernel vs its plain version at the inputs of :func:`pool_case`;
-    also B1 with the plan built in the call, as a frame without a cached
-    plan pools.  Returns the plan."""
+def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None, case=None):
+    """B1 kernel vs its plain version at the inputs of :func:`pool_case`,
+    or of ``case`` (:func:`train_pool_case`: a train step's own fp32
+    inputs, held to POOL_F32_ATOL plus 2^-20 of the terms); also B1 with
+    the plan built in the call, as a frame without a cached plan pools.
+    Returns the plan."""
     from dhd_tpu_torch.ops import (build_pool_plan, mghs_pool_cuda,
                                    mghs_pool_plan_plain)
 
-    cfg, plan, depth, feat, band_mask = pool_case(dev, preset)
+    cfg, plan, depth, feat, band_mask, keys = case or (
+        pool_case(dev, preset) + (None,))
+    fp32 = depth.dtype == torch.float32
     vt = cfg.vt
     before = mghs_pool_cuda.launches
     bev_k, vox_k = mghs_pool_cuda(depth, feat, band_mask, plan)
@@ -357,18 +407,29 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
     # the sums of |d * feat|: the scale of each output's fp32 terms
     bev_a, vox_a = mghs_pool_plan_plain(depth, feat.abs(), band_mask, plan)
     torch.cuda.synchronize()
-    ulps = max(bf16_ulp_diff(bev_k, bev_p), bf16_ulp_diff(vox_k, vox_p))
     err = max(float((bev_k.float() - bev_p.float()).abs().max()),
               float((vox_k.float() - vox_p.float()).abs().max()))
-    share = max(sum_error_share(bev_k, bev_p, bev_a),
-                sum_error_share(vox_k, vox_p, vox_a))
-    # DHD-L's pillars sum ~4x DHD-M's points, and a sum that nearly
-    # cancels is many of its own bf16 ulps off for an fp32-level
-    # difference: there the bar is one ulp plus 2^-20 of the terms'
-    # magnitudes
-    check(ulps <= POOL_ULP_TOL or (preset == "dhd_l" and share <= 1),
-          f"mghs_pool_cuda differs from plain by {ulps} bf16 ulps "
-          f"({share:.3f} of one ulp plus 2^-20 of the terms)")
+    atol = POOL_F32_ATOL if fp32 else None
+    share = max(sum_error_share(bev_k, bev_p, bev_a, atol),
+                sum_error_share(vox_k, vox_p, vox_a, atol))
+    if fp32:
+        check(share <= 1, f"mghs_pool_cuda fp32 at {preset} differs from "
+              f"plain by {err:.3e} ({share:.3f} of {POOL_F32_ATOL} plus "
+              f"2^-20 of the terms)")
+        bar = (f"{share:.3f} of {POOL_F32_ATOL} plus 2^-20 of the terms "
+               f"(tol 1)")
+    else:
+        ulps = max(bf16_ulp_diff(bev_k, bev_p),
+                   bf16_ulp_diff(vox_k, vox_p))
+        # DHD-L's pillars sum ~4x DHD-M's points, and a sum that nearly
+        # cancels is many of its own bf16 ulps off for an fp32-level
+        # difference: there the bar is one ulp plus 2^-20 of the terms'
+        # magnitudes
+        check(ulps <= POOL_ULP_TOL or (preset == "dhd_l" and share <= 1),
+              f"mghs_pool_cuda differs from plain by {ulps} bf16 ulps "
+              f"({share:.3f} of one ulp plus 2^-20 of the terms)")
+        bar = (f"max {ulps} bf16 ulp (tol {POOL_ULP_TOL}), {share:.3f} of "
+               f"one ulp plus 2^-20 of the terms")
     check(float(vox_k.float().abs().sum()) > 0, "vox is all zero")
     del bev_p, vox_p, bev_a, vox_a
 
@@ -386,7 +447,7 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
     call_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
     # the uncached path: sort, plan and pool in the call; device time, the
     # time on an idle card (the host's enqueueing included) and host time
-    _, idx, shape = pool_indices(dev, preset)
+    _, idx, shape = keys or pool_indices(dev, preset)
 
     def uncached():
         return mghs_pool_cuda(depth, feat, band_mask,
@@ -406,9 +467,9 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
                    ).sum())
     hist = pillar_histogram(plan)
     c = vt.out_channels
-    nbytes = (2 * (vox_k.numel() + bev_k.numel() + depth.numel()
-                   + feat.numel() + band_mask.numel())
-              + 8 * n_valid + 4 * plan.starts.numel())
+    nbytes = (depth.element_size() * (
+        vox_k.numel() + bev_k.numel() + depth.numel() + feat.numel()
+        + band_mask.numel()) + 8 * n_valid + 4 * plan.starts.numel())
     flops = n_valid * c * 2 + n_gated * c      # multiply + bev add; vox add
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     measured = {
@@ -431,10 +492,9 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
           f"plain at {preset} (D={vt.D}, C={c}): "
           f"P={plan.dix_s.numel()} points ({n_valid} in grid, {n_gated} "
           f"gated on) -> vox "
-          f"{tuple(vox_k.shape)}, bev {tuple(bev_k.shape)} bf16; two calls "
-          f"bit-identical; max abs err "
-          f"{err:.3e}, max {ulps} bf16 ulp (tol {POOL_ULP_TOL}), {share:.3f} "
-          f"of one ulp plus 2^-20 of the terms; kernel "
+          f"{tuple(vox_k.shape)}, bev {tuple(bev_k.shape)} "
+          f"{str(depth.dtype)[6:]}; two calls bit-identical; max abs err "
+          f"{err:.3e}, {bar}; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}, "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
@@ -443,7 +503,7 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
           f"pillar ({hist['pillars']}): mean {hist['mean']:.1f}, p99 "
           f"{hist['p99']:.0f}, max {hist['max']}, {hist['over_256']} "
           f"pillars over 256; one call's peak memory {call_mb:.1f} MB "
-          f"(outputs {2 * (vox_k.numel() + bev_k.numel()) / 1e6:.1f} MB); "
+          f"(outputs {vox_k.nbytes / 1e6 + bev_k.nbytes / 1e6:.1f} MB); "
           f"plan built in the call: {cold[0]:.4f} ms device, {cold[1]:.4f} "
           f"ms on an idle card, {cold[2]:.0f} us host"
           + ("; ptxas <type, channels per lane>: " + "; ".join(
@@ -454,18 +514,20 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None):
     return plan
 
 
-def phase_plan(dev, kernels, preset, plan):
+def phase_plan(dev, kernels, preset, plan, keys=None):
     """B1's plan kernels (``pool_plan_cuda``: the sorted points' tables and
     the first pass's schedule, built with every plan on the card, so every
     frame of the uncached path) vs their plain version on ``preset``'s
     sorted keys: every table and list must be equal, and equal to
     ``plan``'s (:func:`pool_case`'s).  Also the scratch the split pillars
     take: the shapes' bound, which a plan built in the call allocates,
-    against the slots used, which a plan built once per rig counts."""
+    against the slots used, which a plan built once per rig counts.
+    ``keys``: the (vt, PoolIndices, cams shape) to plan from, in place of
+    :func:`pool_indices`'s."""
     from dhd_tpu_torch.ops.mghs_pool_cuda import (pool_plan_cuda,
                                                   pool_plan_plain)
 
-    vt, idx, shape = pool_indices(dev, preset)
+    vt, idx, shape = keys or pool_indices(dev, preset)
     key_s, order = torch.sort(idx.key, stable=True)
     args = (key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
             vt.z_fine.size)
@@ -694,13 +756,16 @@ def stage_ms(model, run, extra=()) -> dict:
 
 
 def device_busy_ms(run, n_top: int = 6, model=None, ranges=()):
-    """Summed kernel time of one frame (``run()``) from torch.profiler, the
-    kernels that take most of it, and a trace reading of each model method
-    named in ``ranges`` (wrapped in a profiler range for this run): its host
-    ms, its span on the device (first to last kernel), the kernel time
-    inside that span, and the CUDA synchronize calls the host made in it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """Summed device time of one frame or step (``run()``) from
+    ``dhd_tpu_torch.profiling.trace_device``, the kernels that take most
+    of it, and the trace's reading of each model method named in
+    ``ranges`` (wrapped in a profiler range for this run: its host ms, its
+    span on the device, the kernel time inside that span, and the CUDA
+    synchronize calls the host made in it), with the whole run's
+    synchronize calls under ``"frame"``."""
+    from torch.profiler import record_function
+
+    from dhd_tpu_torch.profiling import top_ops, trace_device
 
     def in_range(name, fn):
         def call(*args, **kwargs):
@@ -711,49 +776,15 @@ def device_busy_ms(run, n_top: int = 6, model=None, ranges=()):
     for name in ranges:
         setattr(model, name, in_range(name.strip("_"), getattr(model, name)))
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        prof = trace_device(run, torch.device("cuda"))
     finally:
         for name in ranges:
             delattr(model, name)
-    names = {r.strip("_") for r in ranges}
-    # a range shows on the device too, as its span: not a kernel
-    kern = [(e.key, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in names]
-    kern.sort(key=lambda kv: -kv[1])
-    events = prof.events()
-    syncs = [e for e in events if e.device_type == DeviceType.CPU
-             and "Synchronize" in e.name]
-    readings = {}
-    for name in names:
-        cpu = [e for e in events
-               if e.name == name and e.device_type == DeviceType.CPU]
-        gpu = [e for e in events
-               if e.name == name and e.device_type == DeviceType.CUDA]
-        if not cpu:
-            continue
-        lo, hi = cpu[0].time_range.start, cpu[-1].time_range.end
-        inside = [s for s in syncs
-                  if lo <= s.time_range.start and s.time_range.end <= hi]
-        reading = {"host_ms": sum(e.cpu_time_total for e in cpu) / 1e3,
-                   "syncs": len(inside),
-                   "sync_host_ms": sum(s.cpu_time_total for s in inside)
-                   / 1e3}
-        if gpu:
-            g0 = min(e.time_range.start for e in gpu)
-            g1 = max(e.time_range.end for e in gpu)
-            reading["device_span_ms"] = (g1 - g0) / 1e3
-            reading["kernel_ms"] = sum(
-                e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA and e.name not in names
-                and g0 <= e.time_range.start < g1) / 1e3
-        readings[name] = reading
-    readings["frame"] = {"syncs": len(syncs), "sync_host_ms": sum(
-        s.cpu_time_total for s in syncs) / 1e3}
-    return sum(t for _, t in kern), kern[:n_top], readings
+    readings = {name.strip("_"): prof["ranges"][name.strip("_")]
+                for name in ranges if name.strip("_") in prof["ranges"]}
+    readings["frame"] = prof["syncs"]
+    return (sum(prof["ops"].values()),
+            [(n, t) for n, t, _ in top_ops(prof, n_top)], readings)
 
 
 def host_syncs(run, n_top: int = 8):
@@ -1527,7 +1558,11 @@ def phase_cli(dev, kernels):
             ("stages", "dhd_s", ["--iters", "5"]),
             ("flops", "dhd_s", []),
             ("full", "dhd_s", ["--iters", "5", "--profile",
-                               "--profile-ops", "8"])]
+                               "--profile-ops", "8"]),
+            ("train", "dhd_s", ["--iters", "3", "--batch-size", "4",
+                                "--profile-ops", "8"]),
+            ("train", "dhd_s", ["--iters", "3", "--batch-size", "4",
+                                "--pool-plan", "--profile-ops", "8"])]
     counted = (sorted_segment_sum, mghs_pool_cuda, pool_plan_cuda,
                stereo_cost_volume_cuda)
     # the path each run must go through, beyond finite times: pool, stages
@@ -1536,7 +1571,8 @@ def phase_cli(dev, kernels):
             "stream": (mghs_pool_cuda, stereo_cost_volume_cuda),
             "cv": (stereo_cost_volume_cuda,),
             "stages": (mghs_pool_cuda, pool_plan_cuda),
-            "full": (mghs_pool_cuda, pool_plan_cuda), "flops": ()}
+            "full": (mghs_pool_cuda, pool_plan_cuda), "flops": (),
+            "train": (mghs_pool_cuda, pool_plan_cuda)}
     for what, preset, extra in runs:
         for fn in counted:
             fn.launches = 0
@@ -1562,6 +1598,15 @@ def phase_cli(dev, kernels):
         if what == "stream":
             check("ship pool_plan and cv_static" in text,
                   "cli --what stream did not ship cv_static")
+        if what == "train":
+            losses = re.search(r"^losses: (.*)$", text, re.M)
+            check(losses is not None and all(
+                np.isfinite(float(kv.split("=")[1]))
+                for kv in losses.group(1).split())
+                and "device busy" in text and "peak memory: " in text
+                and ("--pool-plan" not in extra
+                     or "ships a precomputed pool plan" in text),
+                f"cli --what train {' '.join(extra)}: {text}")
         if what == "pool":
             for fn in must["pool"]:
                 kernels[fn.__name__].setdefault("launches_by_path", {})[
@@ -1576,6 +1621,327 @@ def phase_cli(dev, kernels):
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN and cuBLAS in full fp32 inside (no TF32): the fp32 GPU-vs-CPU
+    comparisons.  Outside, PyTorch's defaults hold (cuDNN TF32 on, matmul
+    TF32 off), the mode a user trains in unless they set otherwise."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def tf32_mode() -> str:
+    return (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+
+
+def train_setup(cfg, dev, seed: int = 0):
+    """A model of ``cfg`` in fp32 on ``dev`` with seeded weights, its AdamW
+    schedule, EMA and dropout generator, as ``cli/train`` builds them."""
+    from dhd_tpu_torch.models import build_model
+    from dhd_tpu_torch.train import AdamWSchedule, ModelEMA
+
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(seed))
+    return (model, AdamWSchedule(model.parameters(), cfg.optim, 1000),
+            ModelEMA(model, cfg.optim.ema_init_updates, cfg.optim.ema_decay),
+            torch.Generator(device=dev).manual_seed(seed + 1))
+
+
+def on_device(batch: dict, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def phase_train(dev, kernels, card):
+    """DHD-S training at full width: fp32, B=4, 6 cameras at 256x704,
+    ResNet-50 with remat, HeightNet with DCN and ASPP (dropout 0.5 from a
+    generator), synthetic data with GT from seed 0, on the device before
+    timing.  2 warm-up steps, then 5 timed (host wall time to a
+    synchronize); B1 and its plan kernels once a step; one traced step
+    (trace_device) and one under the sync debug mode; then a checkpoint of
+    the state after them, loaded into a new model, whose next step must
+    give the live run's losses (the forward is deterministic; the
+    backward's atomics are not, so its gradient norm is held to
+    TRAIN_RESUME_TOL and its params to two learning rates)."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.io import load_checkpoint, save_checkpoint
+    from dhd_tpu_torch.ops import mghs_pool_cuda
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+    from dhd_tpu_torch.train import train_step
+
+    cfg = get_config("dhd_s")
+    b = 4
+    batch = on_device(synthetic_batch(cfg, b, seed=0, with_gt=True), dev)
+    model, opt, ema, gen = train_setup(cfg, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        train_step(model, opt, ema, batch, gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counted = (mghs_pool_cuda, pool_plan_cuda)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = train_step(model, opt, ema, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for fn in counted:
+        kernels[fn.__name__]["launches_by_path"]["train"] = fn.launches
+        check(fn.launches == TRAIN_STEPS, f"{fn.__name__} launched "
+              f"{fn.launches} times in {TRAIN_STEPS} train steps, want "
+              f"{TRAIN_STEPS}")
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          f"train metrics not finite: {metrics}")
+    want_updates = cfg.optim.ema_init_updates + TRAIN_WARMUP + TRAIN_STEPS
+    check(ema.updates == want_updates and opt.count == TRAIN_WARMUP
+          + TRAIN_STEPS, f"EMA counter {ema.updates}, want {want_updates}")
+    step = statistics.median(step_ms)
+    print(f"phase 16 ok: DHD-S fp32 train step, B={b}, {n_params / 1e6:.1f} "
+          f"M params, remat, DCN, ASPP dropout 0.5 ({tf32_mode()}): "
+          f"{step:.2f} ms/step median = {b / step * 1e3:.2f} samples/s "
+          f"(steps {', '.join(f'{t:.2f}' for t in step_ms)}; "
+          f"{TRAIN_WARMUP} warm-up steps {warm_s:.1f} s), peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}; EMA counter "
+          f"{ema.updates}; last step "
+          + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics[-1].items()))
+          + f"; on {card}", flush=True)
+
+    def one_step():
+        return train_step(model, opt, ema, batch, gen)
+    busy, top, trace = device_busy_ms(one_step, n_top=10)
+    n_sync, sync_at = host_syncs(one_step)
+    # the forward of each top-level module by CUDA events ("frame": the
+    # whole step, backward, clip, AdamW and EMA included)
+    stages = stage_ms(model, one_step)
+    print(f"phase 16 breakdown: device busy {busy:.2f} ms of {step:.2f} "
+          f"ms/step, idle share {1 - busy / step:.3f}; host syncs per step "
+          f"{n_sync} ({trace['frame']['syncs']} synchronize calls in the "
+          f"trace) at {sync_at}; forward stage ms (CUDA events) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + "; top kernels (ms) "
+          + ", ".join(f"{n[:60]} {t:.3f}" for n, t in top), flush=True)
+
+    # a checkpoint of the live state, a new model from it, one more step
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    save_checkpoint(buf, model, opt, ema, step=opt.count, generator=gen)
+    save_s = time.perf_counter() - t0
+    saved = {k: p.detach().clone() for k, p in model.named_parameters()}
+    live = {k: float(v) for k, v in one_step().items()}
+    live_avg = first_moments(model, opt)
+    del model, opt, ema
+    torch.cuda.empty_cache()
+    model, opt, ema, gen = train_setup(cfg, dev, seed=123)
+    t0 = time.perf_counter()
+    count = load_checkpoint(buf, model, opt, ema, gen)
+    load_s = time.perf_counter() - t0
+    loaded = all(torch.equal(p, saved[k])
+                 for k, p in model.named_parameters())
+    del saved
+    resumed = {k: float(v) for k, v in
+               train_step(model, opt, ema, batch, gen).items()}
+    bitwise = all(resumed[k] == v for k, v in live.items()
+                  if k != "grad_norm")
+    loss_err = max(abs(resumed[k] - v) / abs(v) for k, v in live.items()
+                   if k != "grad_norm")
+    norm_rel = abs(resumed["grad_norm"] - live["grad_norm"]) \
+        / live["grad_norm"]
+    # AdamW's first moment after the step, 0.9 of the saved one plus 0.1
+    # of a gradient that differs by the backward's atomics
+    got = first_moments(model, opt)
+    avg_err = math.sqrt(
+        sum(float((got[k] - v).double().square().sum())
+            for k, v in live_avg.items())
+        / sum(float(v.double().square().sum()) for v in live_avg.values()))
+    del got, live_avg
+    check(count == TRAIN_WARMUP + TRAIN_STEPS + 3 and loaded
+          and ema.updates == want_updates + 4 and loss_err <= 1e-6
+          and norm_rel <= TRAIN_RESUME_TOL and avg_err <= RESUME_MOMENT_TOL,
+          f"resumed step differs: {resumed} vs {live}, params loaded "
+          f"bit for bit {loaded}, exp_avg rel-L2 {avg_err}")
+    print(f"phase 16 checkpoint: {buf.getbuffer().nbytes / 1e9:.2f} GB "
+          f"saved in {save_s:.1f} s, loaded in {load_s:.1f} s into a new "
+          f"model, its params bit for bit the saved ones; its next step "
+          f"against the live run's: losses rel diff {loss_err:.2e} (tol "
+          f"1e-6; bit for bit: {bitwise}), grad_norm rel diff "
+          f"{norm_rel:.2e} (tol {TRAIN_RESUME_TOL}), AdamW's exp_avg "
+          f"rel-L2 {avg_err:.2e} (tol {RESUME_MOMENT_TOL}): the backward's "
+          f"atomics", flush=True)
+    del buf
+
+    # B1 and its plan kernels at this step's own fp32 B=4 inputs and keys
+    case = train_pool_case(cfg, model, batch,
+                           lambda: train_step(model, opt, ema, batch, gen))
+    del model, opt, ema
+    torch.cuda.empty_cache()
+    phase_plan(dev, kernels, "dhd_s_train",
+               phase_kernel(dev, kernels, "dhd_s_train", case=case),
+               keys=case[5])
+    del case
+    torch.cuda.empty_cache()
+
+
+def first_moments(model, opt) -> dict:
+    """AdamW's exp_avg of every parameter, cloned, by name."""
+    names = {p: k for k, p in model.named_parameters()}
+    return {names[p]: st["exp_avg"].clone()
+            for p, st in opt.adamw.state.items()}
+
+
+def train_pool_case(cfg, model, batch, step):
+    """The inputs B1 takes in one train step (``step()``) of ``model``,
+    recorded where the view transformer calls it: (cfg, plan, depth, feat,
+    band_mask, (vt, PoolIndices, cams shape)), as :func:`phase_kernel`
+    and :func:`phase_plan` take them."""
+    import dhd_tpu_torch.models.dhd as dhd
+
+    real, seen = dhd.mghs_pool_cuda, []
+
+    def record(depth, feat, band_mask, plan):
+        seen.append((plan, depth.detach().clone(), feat.detach().clone(),
+                     band_mask.detach().clone()))
+        return real(depth, feat, band_mask, plan)
+    dhd.mghs_pool_cuda = record
+    try:
+        step()
+    finally:
+        dhd.mghs_pool_cuda = real
+    check(len(seen) == 1, f"B1 called {len(seen)} times in a train step")
+    plan, depth, feat, band_mask = seen[0]
+    b, n, fh, fw, d = depth.shape
+    idx = dhd._pool_indices(cfg, model._geom(batch))
+    return (cfg, plan, depth, feat, band_mask,
+            (cfg.vt, idx, (b, n, d, fh, fw)))
+
+
+def adamw_update_error(cfg, before: dict, after: dict, moments: dict,
+                       lr: float) -> float:
+    """The largest distance, in learning rates, of AdamW's first step from
+    zero moments (params ``before`` -> ``after``, dicts by name) from the
+    formula on its own moments: p (1 - lr wd) - lr m^ / (sqrt(v^) + eps),
+    m^ = m / (1 - b1), v^ = v / (1 - b2); each element's own fp32
+    rounding, 2^-22 of |p|, aside."""
+    worst = 0.0
+    for k, p0 in before.items():
+        p0, m, v = (t.double() for t in (p0, moments["exp_avg"][k],
+                                          moments["exp_avg_sq"][k]))
+        want = p0 * (1 - lr * cfg.optim.weight_decay) - lr * (m / 0.1) / (
+            (v / 1e-3).sqrt() + 1e-8)
+        err = (after[k].double() - want).abs() - 2.0 ** -22 * p0.abs()
+        worst = max(worst, float(err.max()) / lr)
+    return worst
+
+
+def phase_train_small(dev):
+    """dhd_tiny (ASPP dropout off) and dhd_micro_stereo (F frames, B3 in
+    the forward) in fp32 without TF32: one train step at the full
+    learning rate (the schedule past its warmup) on the GPU and on the
+    CPU from the same weights and batch.  The losses within
+    TRAIN_LOSS_RTOL; the gradients and AdamW's first moment within
+    GRAD_TOLS (rel-L2 of the whole, the median and the worst tensor:
+    flipped ReLU gates move single tensors, ``train/compare.py``), the
+    second moment within SQ_TOLS; the GPU's update within UPDATE_LR_TOL
+    learning rates of AdamW's formula on its own moments.  A control, the
+    CPU's step again on images one part in 2^22 larger, reads how far
+    fp32 rounding alone moves the same numbers."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.ops import mghs_pool_cuda, stereo_cost_volume_cuda
+    from dhd_tpu_torch.train import (gradient_errors, train_step,
+                                     zero_gradient_params)
+
+    cpu = torch.device("cpu")
+    tols = {"grad": GRAD_TOLS, "exp_avg": GRAD_TOLS, "exp_avg_sq": SQ_TOLS}
+    for name in ("dhd_tiny", "dhd_micro_stereo"):
+        cfg = get_config(name)
+        cfg = dataclasses.replace(
+            cfg, heightnet_cfg=dataclasses.replace(cfg.heightnet_cfg,
+                                                   aspp_dropout=0.0),
+            depthnet_cfg=dataclasses.replace(cfg.depthnet_cfg,
+                                             aspp_dropout=0.0))
+        batch = synthetic_batch(cfg, 2, seed=5, varied_rig=True)
+        runs, weights = {}, None
+        before = (mghs_pool_cuda.launches, stereo_cost_volume_cuda.launches)
+        for side, where, scale in (("gpu", dev, 1.0), ("cpu", cpu, 1.0),
+                                   ("control", cpu, 1.0 + 2.0 ** -22)):
+            model, opt, ema, _ = train_setup(cfg, where, seed=7)
+            if weights is None:
+                weights = {k: v.cpu().clone()
+                           for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(weights)
+            init = {k: p.detach().cpu().clone()
+                    for k, p in model.named_parameters()}
+            opt.count = cfg.optim.warmup_iters      # the full rate from here
+            lr = opt.schedule(opt.count)
+            imgs = batch["imgs"] * np.float32(scale)
+            m = train_step(model, opt, ema, on_device(dict(batch, imgs=imgs),
+                                                      where))
+            names = {p: k for k, p in model.named_parameters()}
+            run = {"metrics": {k: float(v) for k, v in m.items()},
+                   "grad": {k: p.grad.cpu().clone()
+                            for k, p in model.named_parameters()},
+                   "params": {k: p.detach().cpu().clone()
+                              for k, p in model.named_parameters()}}
+            for key in ("exp_avg", "exp_avg_sq"):
+                run[key] = {names[p]: st[key].cpu().clone()
+                            for p, st in opt.adamw.state.items()}
+            runs[side] = run
+            if side == "gpu":
+                kernel_runs = (
+                    mghs_pool_cuda.launches - before[0],
+                    stereo_cost_volume_cuda.launches - before[1])
+                update_err = adamw_update_error(cfg, init, run["params"],
+                                                run, lr)
+        zero = zero_gradient_params(model)
+        mg, mc = runs["gpu"]["metrics"], runs["cpu"]["metrics"]
+        loss_err = max(abs(mg[k] - v) / abs(v) for k, v in mc.items()
+                       if k != "grad_norm")
+        read = {key: gradient_errors(runs["gpu"][key], runs["cpu"][key],
+                                     zero) for key in tols}
+        control = {key: gradient_errors(runs["control"][key],
+                                        runs["cpu"][key], zero)
+                   for key in tols}
+        bad = [key for key, tol in tols.items()
+               if any(r > t for r, t in zip(read[key], tol))]
+        check(loss_err <= TRAIN_LOSS_RTOL and not bad
+              and update_err <= UPDATE_LR_TOL
+              and kernel_runs[0] == (2 if cfg.temporal else 1)
+              and (kernel_runs[1] > 0) == cfg.stereo,
+              f"{name} train step GPU vs CPU: losses {loss_err:.2e}, "
+              f"{read} beyond {bad}, update {update_err:.2e} lr, B1/B3 "
+              f"launches {kernel_runs}")
+
+        def fmt(r):
+            return "/".join(f"{x:.2e}" for x in r)
+        print(f"phase 17 ok: {name} fp32 train step at lr {lr:.1e}, GPU vs "
+              f"CPU ({tf32_mode()}): losses rel err {loss_err:.2e} (tol "
+              f"{TRAIN_LOSS_RTOL}), grad_norm {mg['grad_norm']:.5f} vs "
+              f"{mc['grad_norm']:.5f}; rel-L2 whole/median tensor/worst "
+              f"tensor (tol; control, CPU on images x (1 + 2^-22)): "
+              + ", ".join(f"{key} {fmt(read[key])} ({fmt(tols[key])}; "
+                          f"{fmt(control[key])})" for key in tols)
+              + f"; the GPU's update off AdamW's formula by {update_err:.2e}"
+              f" lr (tol {UPDATE_LR_TOL}); B1, B3 launches on the GPU "
+              f"{kernel_runs}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -1585,9 +1951,6 @@ def main() -> int:
     from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
 
     dev = torch.device("cuda")
-    # fp32 comparisons (phase 4) in full fp32: no TF32 in cuDNN or matmul
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = smi_name_power()
     t0 = time.perf_counter()
     logs = cuda_build.build(cuda_build.SOURCES)
@@ -1596,9 +1959,8 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; built "
           f"{list(cuda_build.SOURCES)} in {time.perf_counter() - t0:.1f} s "
           f"[{'; '.join(ln for lines in ptxas.values() for ln in lines)}]; "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}",
-          flush=True)
+          f"{tf32_mode()} (the fp32 GPU-vs-CPU phases 4, 8, 13, 17 turn "
+          f"TF32 off)", flush=True)
 
     kernels: dict = {}
     phase_plan(dev, kernels, "dhd_s",
@@ -1607,23 +1969,29 @@ def main() -> int:
     kernels["pool_plan_cuda"]["launches_by_path"] = {
         "dhd_s_serve_uncached": phase_serve_uncached(
             dev, card, (pool_plan_cuda,))["pool_plan_cuda"]}
-    phase_tiny(dev)
+    with full_fp32():
+        phase_tiny(dev)
     phase_cost_volume(dev, kernels, ptxas=ptxas)
     phase_plan(dev, kernels, "dhd_m",
                phase_kernel(dev, kernels, "dhd_m", ptxas))
     phase_stream(dev, kernels, card)
-    phase_small_stream(dev, get_config("dhd_micro_stereo"), 8)
+    with full_fp32():
+        phase_small_stream(dev, get_config("dhd_micro_stereo"), 8)
     phase_attention(dev, kernels, ptxas)
     phase_layer_norm(dev, kernels, ptxas)
     phase_cost_volume(dev, kernels, "dhd_l", ptxas)
     phase_plan(dev, kernels, "dhd_l",
                phase_kernel(dev, kernels, "dhd_l", ptxas))
     phase_stream(dev, kernels, card, "dhd_l")
-    phase_small_stream(dev, tiny_dhd_l(), 13)
+    with full_fp32():
+        phase_small_stream(dev, tiny_dhd_l(), 13)
     phase_segment_sum(dev, kernels, ptxas)
     phase_plan(dev, kernels, "hot",
                phase_kernel(dev, kernels, "hot", ptxas))
     phase_cli(dev, kernels)
+    phase_train(dev, kernels, card)
+    with full_fp32():
+        phase_train_small(dev)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -7,12 +7,15 @@
   python -m dhd_tpu_torch.cli.benchmark --preset dhd_s --what pool
   python -m dhd_tpu_torch.cli.benchmark --preset dhd_tiny --what pool \\
       --device cpu
+  python -m dhd_tpu_torch.cli.benchmark --preset dhd_s --what train \\
+      --batch-size 4
 
 Modes: ``full`` (one forward), ``stream`` (temporal presets: the streaming
 step with a cached pool plan and the rig-static stereo warp plan),
 ``stages`` (each top-level module alone), ``flops`` (counted by
-``torch.utils.flop_counter``), ``cv`` (the stereo cost volume in parts) and
-``pool`` (the pooling kernels and the raw segment-sum).  It runs on the GPU
+``torch.utils.flop_counter``), ``cv`` (the stereo cost volume in parts),
+``pool`` (the pooling kernels and the raw segment-sum) and ``train`` (the
+whole train step in fp32, optionally with a precomputed pool plan).  It runs on the GPU
 unless ``--device cpu`` is given, where every kernel wrapper takes its
 plain version, and raises when there is no GPU and no ``--device``.  The
 inputs live on the device before timing; each timed loop runs one warm-up
@@ -33,7 +36,6 @@ from dhd_tpu_torch.models.dhd import GEOM_KEYS, stereo_feat_channels
 
 # modes of the JAX CLI that need slices not ported yet
 NOT_PORTED = {
-    "train": "the training slice",
     "exported": "cli/export",
 }
 
@@ -335,8 +337,74 @@ def run_stages(args, cfg, dt, dev, batch) -> None:
                   lambda unet=unet, x=x: unet(x), args, dev)
 
 
+def run_train(args, cfg, dt, dev, batch) -> None:
+    """The whole train step (``train.train_step``: forward in train mode,
+    losses, backward, clip, AdamW, EMA) on one synthetic batch with GT, in
+    fp32 whatever ``--bf16`` says (bf16 training, ROADMAP.md §A.4b, is not
+    ported yet).  It
+    prints ms/step and samples/s, the peak device memory, the last step's
+    losses, and the device-busy time of a traced step with its top
+    kernels; no MFU: the port has no FLOP count of the train step.
+    ``--pool-plan`` ships a plan built once (single-frame presets: a
+    temporal model pools each frame with its own geometry)."""
+    from torch.profiler import record_function
+
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.profiling import top_ops, trace_device
+    from dhd_tpu_torch.train import AdamWSchedule, ModelEMA, train_step
+    tbatch = {k: torch.as_tensor(v, device=dev)
+              for k, v in synthetic_batch(cfg, args.batch_size, seed=0,
+                                          with_gt=True).items()}
+    if args.pool_plan:
+        if cfg.temporal:
+            raise SystemExit("--pool-plan: single-frame presets only "
+                             "(temporal training pools each frame with "
+                             "its own geometry)")
+        from dhd_tpu_torch.models import build_batch_pool_plan
+        tbatch["pool_plan"] = build_batch_pool_plan(cfg, tbatch, device=dev)
+        print("train batch ships a precomputed pool plan")
+    model = _model(cfg, torch.float32, dev)
+    optimizer = AdamWSchedule(model.parameters(), cfg.optim,
+                              steps_per_epoch=1000)
+    ema = ModelEMA(model, cfg.optim.ema_init_updates, cfg.optim.ema_decay)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    last = {}
+
+    def step():
+        last.update(train_step(model, optimizer, ema, tbatch, gen))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    s = timed_s(step, args.iters, dev)
+    tf32 = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}"
+            if dev.type == "cuda" else "cpu")
+    print(f"{args.preset} train step: {s * 1e3:.2f} ms/iter = "
+          f"{args.batch_size / s:.2f} samples/s (fp32, B={args.batch_size}; "
+          f"{tf32})")
+    print("peak memory: " + (
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+        if dev.type == "cuda" else "not measured (no device)"))
+    print("losses: " + " ".join(f"{k}={float(v):.4f}"
+                                for k, v in sorted(last.items())))
+
+    def run():
+        with record_function("train_step"):
+            step()
+    prof = trace_device(run, dev, collapse=not args.profile_detail)
+    busy = sum(prof["ops"].values())
+    print(f"{prof['clock']} busy (one traced step): {busy:.2f} ms of "
+          f"{s * 1e3:.2f} ms/step" + (
+              f", idle share {1 - busy / (s * 1e3):.3f}"
+              if prof["clock"] == "device" else ""))
+    print(f"top kernels by {prof['clock']} time:")
+    for name, ms, cnt in top_ops(prof, args.profile_ops):
+        print(f"  {ms:10.3f} ms  x{cnt:<5d} {name}")
+
+
 MODES = {"full": run_full, "stream": run_stream, "stages": run_stages,
-         "flops": run_flops, "cv": run_cv, "pool": run_pool}
+         "flops": run_flops, "cv": run_cv, "pool": run_pool,
+         "train": run_train}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -356,6 +424,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--profile-detail", action="store_true",
                    help="keep template arguments in the kernel names and "
                         "print each kernel's full signature")
+    p.add_argument("--pool-plan", action="store_true",
+                   help="--what train: ship a pool plan built once (the "
+                        "kernel path with a cached plan)")
     p.add_argument("--device", default=None,
                    help="'cpu' runs every kernel's plain version on the "
                         "CPU; default: the GPU (raises without one)")
@@ -363,8 +434,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.what in NOT_PORTED:
         raise SystemExit(
             f"--what {args.what} is not ported yet: it comes with "
-            f"{NOT_PORTED[args.what]} (ROADMAP.md, 'Open items', "
-            f"A. Slices, 'Still to do')")
+            f"{NOT_PORTED[args.what]} (ROADMAP.md §A.8)")
 
     from dhd_tpu_torch.config import get_config
     from dhd_tpu_torch.data import synthetic_batch

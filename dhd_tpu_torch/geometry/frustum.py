@@ -64,11 +64,13 @@ def frustum_to_ego(frustum: torch.Tensor, sensor2ego: torch.Tensor,
       (B, N, D, fH, fW, 3) ego-frame coordinates.
     """
     pts = frustum[None, None] - post_trans[:, :, None, None, None, :]
-    inv_post = torch.linalg.inv(post_rots)
+    # inv_ex: the same factorisation as inv without its error check, which
+    # waits for the device
+    inv_post = torch.linalg.inv_ex(post_rots).inverse
     pts = torch.einsum("bnij,bndhwj->bndhwi", inv_post, pts)
     pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
     combine = torch.einsum("bnij,bnjk->bnik", sensor2ego[:, :, :3, :3],
-                           torch.linalg.inv(intrins))
+                           torch.linalg.inv_ex(intrins).inverse)
     pts = torch.einsum("bnij,bndhwj->bndhwi", combine, pts)
     pts = pts + sensor2ego[:, :, None, None, None, :3, 3]
     return torch.einsum("bij,bndhwj->bndhwi", bda, pts)

@@ -16,6 +16,7 @@ Module attributes follow the reference's state_dict key space
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Union
 
@@ -42,7 +43,7 @@ def build_image_backbone(cfg: ModelConfig) -> nn.Module:
     """The image backbone of ``cfg``; a stereo one lists its stride-4
     feature first in ``out_channels``."""
     if cfg.backbone == "resnet50":
-        return ResNet50(cfg.backbone_out_indices)
+        return ResNet50(cfg.backbone_out_indices, remat=cfg.backbone_remat)
     if cfg.backbone == "tiny_cnn":
         return TinyCNN(emit_stereo=cfg.stereo)
     if cfg.backbone == "swin_base":
@@ -95,11 +96,19 @@ def collapse_z(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, dy, dx, dz * c)
 
 
+@functools.lru_cache(maxsize=None)
+def _frustum(vt: ViewTransformConfig, device: torch.device) -> torch.Tensor:
+    """The pooling frustum of ``vt`` on ``device``, copied from the host
+    once: a frame planned in the call (every training step) does not wait
+    for the copy.  Callers must not modify it in place."""
+    return create_frustum(vt.depth, vt.input_size, vt.downsample, vt.sid,
+                          device=device)
+
+
 def _pool_indices(cfg: ModelConfig, geom: Dict[str, torch.Tensor]
                   ) -> PoolIndices:
     vt = cfg.vt
-    frustum = create_frustum(vt.depth, vt.input_size, vt.downsample, vt.sid,
-                             device=geom["bda"].device)
+    frustum = _frustum(vt, geom["bda"].device)
     coords = frustum_to_ego(frustum, *(geom[k] for k in GEOM_KEYS))
     return compute_pool_indices(coords, vt)
 
@@ -152,7 +161,8 @@ class MGHSTransform(nn.Module):
 
     def forward(self, x: torch.Tensor, geom: Dict[str, torch.Tensor],
                 plan: Optional[PoolPlan] = None,
-                cost_volume: Optional[torch.Tensor] = None
+                cost_volume: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """
         Args:
@@ -163,6 +173,7 @@ class MGHSTransform(nn.Module):
           plan: optional cached pooling plan.
           cost_volume: (B*N, D, 4fH, 4fW) stereo depth probabilities, for a
             stereo depth net.
+          generator: draws the ASPP dropout masks in training.
         Returns:
           bev (B, Dy, Dx, C), vox (B, Dy, Dx, Dz, C) and the fp32 softmax
           distributions depth (B, N, fH, fW, D), height (B, N, fH, fW, H).
@@ -178,11 +189,11 @@ class MGHSTransform(nn.Module):
             # (lss_heightmap.py:62,482-485)
             xd = self.depth_net(x)
         else:
-            xd = self.depth_net(x, mlp_input, cost_volume)
+            xd = self.depth_net(x, mlp_input, cost_volume, generator)
         xd = xd.permute(0, 2, 3, 1)                     # (BN, fH, fW, D+C)
         depth = torch.softmax(xd[..., :vt.D].float(), dim=-1)
         feat = xd[..., vt.D:vt.D + vt.out_channels].contiguous()
-        height_logit = self.height_net(x, mlp_input)
+        height_logit = self.height_net(x, mlp_input, generator=generator)
         height = torch.softmax(height_logit.float(), dim=1).permute(0, 2, 3, 1)
         band_mask = band_masks_from_height(height, vt).to(x.dtype)
 
@@ -192,7 +203,9 @@ class MGHSTransform(nn.Module):
         use_kernel = self.cfg.pool_method != "xla" and (
             plan is not None or x.is_cuda)
         if use_kernel:
-            # the kernel path; without a cached plan, plan this frame
+            # the kernel path; without a cached plan, plan this frame (a
+            # training frame has its own geometry).  Under autograd B1
+            # runs in its autograd.Function
             if plan is None:
                 plan = build_pool_plan(_pool_indices(self.cfg, geom), vt,
                                        (b, n, vt.D, fh, fw))
@@ -259,13 +272,20 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class DHDNet(nn.Module):
-    """Single-frame DHD (DHD-S) for inference.
+    """Single-frame DHD (DHD-S).
 
     ``DHDNet(cfg, dtype, device, generator)`` builds the model with seeded
     random weights (load real ones with
     :func:`dhd_tpu_torch.io.load_jax_variables` or ``load_state_dict``) in
     eval mode on ``device`` (default: the GPU; raises if there is none).
     The camera-embedding BatchNorms stay in fp32 in a bf16 model.
+
+    In eval mode a call records no autograd graph, whatever the grad mode
+    (serving).  After ``model.train()`` a grad-enabled call is the training
+    forward of the JAX package's ``train=True``: gradients flow, BatchNorms
+    use batch statistics and step their running ones, the ASPP dropout
+    draws from the call's ``generator``, and ResNet-50 recomputes its
+    bottlenecks in the backward where ``cfg.backbone_remat`` says so.
     """
     temporal = False
 
@@ -376,26 +396,36 @@ class DHDNet(nn.Module):
         return (occ.reshape(occ.shape[:3] + (cfg.head_Dz, cfg.num_classes)),
                 occ)
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Inference forward pass.
+    def forward(self, batch: Dict[str, Any],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Forward pass (the class docstring says what train mode changes).
 
         Args:
           batch: numpy arrays or tensors: imgs (B, N, H, W, 3) normalized
             images; sensor2keyego (B, N, 4, 4); intrins, post_rots
             (B, N, 3, 3); post_trans (B, N, 3); bda (B, 3, 3); optional
-            pool_plan from :func:`build_batch_pool_plan`.
+            pool_plan from :func:`build_batch_pool_plan`.  Other keys (the
+            ground truth) are ignored.
+          generator: draws the dropout masks in training, on the model's
+            device.
         Returns:
           occ_logits (B, Dx, Dy, Dz, n_cls), occ_logits_flat
           (B, Dx, Dy, Dz*n_cls), depth and height distributions; fp32.
         """
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            return self._single_frame(batch, generator)
+
+    def _single_frame(self, batch, generator):
         imgs = _as_tensor(batch["imgs"], self.device, self.dtype)
         b, n, h, w, _ = imgs.shape
         x, _ = self._encode(
             imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w))
         x = x.reshape((b, n) + x.shape[1:])
         vt_out = self.img_view_transformer(x, self._geom(batch),
-                                           batch.get("pool_plan"))
+                                           batch.get("pool_plan"),
+                                           generator=generator)
         occ, occ_flat = self._fuse_and_predict(vt_out["bev"], vt_out["vox"])
         return {"occ_logits": occ, "occ_logits_flat": occ_flat,
                 "depth": vt_out["depth"], "height": vt_out["height"]}

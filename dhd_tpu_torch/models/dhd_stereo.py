@@ -3,7 +3,7 @@
 detectors/DHD_model.py:245-667, on the BEVDet4D/BEVStereo4D frame
 protocol).
 
-Two entry points, both inference:
+Two entry points:
 
 * the streaming step ``model(batch, cache=...)``: ``batch`` holds the
   current frame only (imgs (B, N, H, W, 3), sensor2ego / ego2global
@@ -14,7 +14,10 @@ Two entry points, both inference:
   frame), and it returns ``(outputs, new_cache)``;
 * the F-frame forward ``model(batch, with_prev=...)`` over a frames-major
   batch (imgs (B, F, N, H, W, 3), frame 0 the key frame), what the eval
-  path runs.
+  path runs and, in train mode, the training forward: gradients reach the
+  key frame only, as in JAX (the history frames' grids and stereo
+  features, and the extra frame's, are detached; the cost volume has no
+  gradient).
 
 Each processed frame runs the MGHS transform with a stereo cost volume
 against the previous frame's stride-4 features (kernel B3 on the GPU; the
@@ -156,7 +159,7 @@ def build_stream_cv_static(cfg: ModelConfig, batch: Dict[str, Any],
 
 
 class DHDStereoNet(DHDNet):
-    """Temporal + stereo DHD (DHD-M, DHD-L) for inference; built like
+    """Temporal + stereo DHD (DHD-M, DHD-L); built, served and trained like
     :class:`~dhd_tpu_torch.models.DHDNet`."""
     temporal = True
 
@@ -193,7 +196,8 @@ class DHDStereoNet(DHDNet):
                prev_sf: Optional[torch.Tensor],
                k2s: Optional[torch.Tensor],
                plan: Optional[PoolPlan] = None,
-               cv_static: Optional[Dict[str, Any]] = None):
+               cv_static: Optional[Dict[str, Any]] = None,
+               generator: Optional[torch.Generator] = None):
         """One processed frame: encoder, cost volume, MGHS transform and
         pre-process nets.  imgs (B, N, H, W, 3); returns the transform's
         outputs with its grids pre-processed, and the frame's stereo
@@ -206,7 +210,7 @@ class DHDStereoNet(DHDNet):
             sf = sfeat.permute(0, 2, 3, 1).contiguous()
             cv = self._cost_volume(prev_sf, sf, k2s, geom, b, n, cv_static)
         out = self.img_view_transformer(
-            x.reshape((b, n) + x.shape[1:]), geom, plan, cv)
+            x.reshape((b, n) + x.shape[1:]), geom, plan, cv, generator)
         out["bev"], out["vox"] = self._pre_process(out["bev"], out["vox"])
         return out, sf
 
@@ -225,20 +229,24 @@ class DHDStereoNet(DHDNet):
         return {"occ_logits": occ, "occ_logits_flat": occ_flat,
                 "depth": depth, "height": height}
 
-    @torch.no_grad()
     def forward(self, batch: Dict[str, Any],
-                cache: Optional[CacheDict] = None, with_prev: bool = True):
+                cache: Optional[CacheDict] = None, with_prev: bool = True,
+                generator: Optional[torch.Generator] = None):
         """The streaming step when ``cache`` is given (``{}`` for the
         first frame of a stream): returns ``(outputs, new_cache)``.
         Otherwise the F-frame forward over a frames-major batch;
         ``with_prev=False`` skips the history frames, with a zero cost
         volume and zero previous grids (the SequentialControlHook's early
-        epochs).  Outputs as :meth:`DHDNet.forward`."""
-        if cache is not None:
-            return self._streaming(batch, cache)
-        return self._frames(batch, with_prev)
+        epochs).  Outputs, grad mode and ``generator`` as
+        :meth:`DHDNet.forward`."""
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            if cache is not None:
+                return self._streaming(batch, cache, generator)
+            return self._frames(batch, with_prev, generator)
 
-    def _streaming(self, batch: Dict[str, Any], cache: CacheDict
+    def _streaming(self, batch: Dict[str, Any], cache: CacheDict,
+                   generator: Optional[torch.Generator] = None
                    ) -> Tuple[Dict[str, torch.Tensor], CacheDict]:
         """One streaming step (dhd_stereo.py:356-468).  Cache keys:
         stereo_feat (B*N, Hs, Ws, Cs) channels-last; bev (B, Dy, Dx, C) and
@@ -257,7 +265,7 @@ class DHDStereoNet(DHDNet):
         out, sf = self._frame(
             _as_tensor(batch["imgs"], self.device, self.dtype), geom,
             cache.get("stereo_feat"), k2s, batch.get("pool_plan"),
-            batch.get("cv_static"))
+            batch.get("cv_static"), generator)
         bev, vox = out["bev"], out["vox"]
 
         if cache.get("bev") is None:
@@ -277,11 +285,14 @@ class DHDStereoNet(DHDNet):
         return outputs, {"stereo_feat": sf, "bev": bev, "vox": vox,
                          "cam2global": cam2global}
 
-    def _frames(self, batch: Dict[str, Any], with_prev: bool
+    def _frames(self, batch: Dict[str, Any], with_prev: bool,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """The F-frame forward (dhd_stereo.py:176-325): frames newest
         history first, the extra stereo reference frame contributing only
-        its stride-4 feature."""
+        its stride-4 feature.  Only the key frame's own path keeps its
+        gradient (JAX's stop-gradients, dhd_tpu/models/dhd_stereo.py:234,
+        285-287)."""
         cfg = self.cfg
         vt = cfg.vt
         num_frames = cfg.num_frames
@@ -303,18 +314,21 @@ class DHDStereoNet(DHDNet):
                 b, n, h, w, _ = imgs[:, fid].shape
                 _, sfeat = self._encode(imgs[:, fid].permute(
                     0, 1, 4, 2, 3).reshape(b * n, 3, h, w), stage0_only=True)
-                prev_sf = sfeat.permute(0, 2, 3, 1).contiguous()
+                prev_sf = sfeat.permute(0, 2, 3, 1).contiguous().detach()
                 continue
             pool_fid = 0 if cfg.align_after_view_transformation else fid
             geom = {k: v[:, fid] for k, v in views.items()}
             geom.update(bda=bda, mlp_sensor2keyego=s2k[:, 0],
                         sensor2keyego=s2k[:, pool_fid])
             k2s = c2a[:, fid] if prev_sf is not None else None
-            out, sf = self._frame(imgs[:, fid], geom, prev_sf, k2s)
+            out, sf = self._frame(imgs[:, fid], geom, prev_sf, k2s,
+                                  generator=generator)
             if key_frame:
                 depth_key, height_key = out["depth"], out["height"]
             else:
-                prev_sf = sf
+                out["bev"] = out["bev"].detach()
+                out["vox"] = out["vox"].detach()
+                prev_sf = None if sf is None else sf.detach()
             bev_list.append(out["bev"])
             vox_list.append(out["vox"])
 

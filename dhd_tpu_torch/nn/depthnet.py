@@ -10,12 +10,15 @@ written as plain-torch bilinear sampling.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
 from dhd_tpu_torch.config import DepthNetConfig
 from dhd_tpu_torch.device import device_constant
-from .layers import ASPP, BasicBlock, Mlp, SELayer, conv1x1_basic_block
+from .layers import (ASPP, BasicBlock, BatchNorm1d, BatchNorm2d, Mlp,
+                     SELayer, conv1x1_basic_block)
 
 _KY = (-1., -1., -1., 0., 0., 0., 1., 1., 1.)
 _KX = (-1., 0., 1., -1., 0., 1., -1., 0., 1.)
@@ -83,7 +86,7 @@ class DeformConv(nn.Module):
         return out.reshape(b, g * og, h, w)
 
 
-class EmbeddingBN(nn.BatchNorm1d):
+class EmbeddingBN(BatchNorm1d):
     """The camera embedding's BatchNorm (``mlp_bn``), kept in fp32 whatever
     the model's dtype, as the JAX package keeps it
     (``dhd_tpu/nn/depthnet.py:187,219``).  The embedding holds intrinsics
@@ -101,7 +104,8 @@ class _DistributionNet(nn.Sequential):
     optional ASPP + optional DCN + 1x1 out conv; indices shift with the
     flags as in the reference's keys.  In a stereo net the first block
     takes the features and the reduced cost volume concatenated, with a
-    1x1 conv skip."""
+    1x1 conv skip.  The ASPP's dropout draws from the call's
+    ``generator``."""
 
     def __init__(self, mid: int, out_bins: int, cfg: DepthNetConfig):
         if cfg.stereo:
@@ -118,12 +122,18 @@ class _DistributionNet(nn.Sequential):
         mods.append(nn.Conv2d(mid, out_bins, 1))
         super().__init__(*mods)
 
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        for mod in self:
+            x = mod(x, generator) if isinstance(mod, ASPP) else mod(x)
+        return x
+
 
 class HeightNet(nn.Module):
     """DepthNet minus the context branch (depthnet.py:418-652).
 
-    forward(x (BN, C_in, fH, fW), mlp_input (BN, 27) fp32, cost_volume)
-    -> (BN, H, fH, fW) logits.  With ``cfg.stereo`` the (BN, H, 4fH, 4fW)
+    forward(x (BN, C_in, fH, fW), mlp_input (BN, 27) fp32, cost_volume,
+    generator) -> (BN, H, fH, fW) logits; ``generator`` draws the ASPP's
+    dropout mask in training.  With ``cfg.stereo`` the (BN, H, 4fH, 4fW)
     cost volume goes through ``cost_volumn_net`` (two stride-2 3x3 convs
     with BN; the reference's spelling) and joins the features before
     ``depth_conv``.
@@ -135,16 +145,16 @@ class HeightNet(nn.Module):
         self.stereo = cfg.stereo
         self.reduce_conv = nn.Sequential(
             nn.Conv2d(in_ch, mid, 3, padding=1),
-            nn.BatchNorm2d(mid), nn.ReLU(inplace=True))
+            BatchNorm2d(mid), nn.ReLU(inplace=True))
         self.bn = EmbeddingBN(27)
         self.depth_mlp = Mlp(27, mid, mid)
         self.depth_se = SELayer(mid)
         if cfg.stereo:
             self.cost_volumn_net = nn.Sequential(
                 nn.Conv2d(out_bins, out_bins, 3, 2, 1),
-                nn.BatchNorm2d(out_bins),
+                BatchNorm2d(out_bins),
                 nn.Conv2d(out_bins, out_bins, 3, 2, 1),
-                nn.BatchNorm2d(out_bins))
+                BatchNorm2d(out_bins))
         self.depth_conv = _DistributionNet(mid, out_bins, cfg)
 
     def _embed(self, x, mlp_input):
@@ -153,17 +163,17 @@ class HeightNet(nn.Module):
         mlp = self.bn(mlp_input.float()).to(x.dtype)
         return self.reduce_conv(x), mlp
 
-    def _distribution(self, h, cost_volume):
+    def _distribution(self, h, cost_volume, generator):
         if self.stereo:
             if cost_volume is None:
                 raise ValueError("a stereo net needs a cost volume")
             h = torch.cat([h, self.cost_volumn_net(cost_volume)], dim=1)
-        return self.depth_conv(h)
+        return self.depth_conv(h, generator)
 
-    def forward(self, x, mlp_input, cost_volume=None):
+    def forward(self, x, mlp_input, cost_volume=None, generator=None):
         x, mlp = self._embed(x, mlp_input)
         h = self.depth_se(x, self.depth_mlp(mlp)[..., None, None])
-        return self._distribution(h, cost_volume)
+        return self._distribution(h, cost_volume, generator)
 
 
 class DepthNet(HeightNet):
@@ -180,9 +190,10 @@ class DepthNet(HeightNet):
         self.context_se = SELayer(mid)
         self.context_conv = nn.Conv2d(mid, context_ch, 1)
 
-    def forward(self, x, mlp_input, cost_volume=None):
+    def forward(self, x, mlp_input, cost_volume=None, generator=None):
         x, mlp = self._embed(x, mlp_input)
         context = self.context_conv(
             self.context_se(x, self.context_mlp(mlp)[..., None, None]))
         h = self.depth_se(x, self.depth_mlp(mlp)[..., None, None])
-        return torch.cat([self._distribution(h, cost_volume), context], dim=1)
+        return torch.cat([self._distribution(h, cost_volume, generator),
+                          context], dim=1)

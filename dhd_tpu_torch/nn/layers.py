@@ -2,17 +2,112 @@
 
 Attribute names follow the reference's state_dict key space (the naming
 template ``dhd_tpu/oracle/torch_ref.py`` uses), so a reference ``.pth`` or a
-converted JAX checkpoint loads with ``strict=True``.  BatchNorm is torch's
-own (eps 1e-5, momentum 0.1); the port serves in eval mode on running
-statistics.
+converted JAX checkpoint loads with ``strict=True``.  BatchNorm keeps
+torch's keys and eval mode (eps 1e-5, running statistics); in training it
+is flax's ``nn.BatchNorm`` (:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+# flax's BatchNorm momentum as the JAX package sets it (torch's 0.1)
+FLAX_BN_MOMENTUM = 0.9
+
+
+class _FlaxTrainBN:
+    """The train-mode forward of the JAX package's ``BatchNorm``
+    (``dhd_tpu/nn/layers.py:23-36``, flax ``nn.BatchNorm``): statistics in
+    fp32 (or wider) over every axis but the channels, the variance as
+    ``max(0, E[x^2] - E[x]^2)``, ``y = (x - mean) * (rsqrt(var + eps) *
+    weight) + bias``, and the running statistics stepped with the *biased*
+    batch variance, ``r = 0.9 r + 0.1 stat``.  torch's own BatchNorm steps
+    them with the unbiased variance, and raises on one value per channel,
+    where flax normalises to ``bias``.  Eval mode is torch's.
+
+    ``update_stats`` False keeps the running statistics as they are: a
+    rematerialised block recomputed in the backward (:func:`remat`) must
+    not step them a second time."""
+    update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = FLAX_BN_MOMENTUM
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(_FlaxTrainBN, nn.BatchNorm2d):
+    """BatchNorm over (B, C, H, W) with flax's train-mode statistics."""
+
+
+class BatchNorm1d(_FlaxTrainBN, nn.BatchNorm1d):
+    """BatchNorm over (B, C) rows with flax's train-mode statistics."""
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Inside, ``module``'s BatchNorms normalise with batch statistics in
+    training but leave their running statistics alone."""
+    bns = [m for m in module.modules() if isinstance(m, _FlaxTrainBN)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.update_stats
+
+
+def remat(module: Callable, *args):
+    """``module(*args)`` whose activations are recomputed in the backward
+    instead of kept (``torch.utils.checkpoint``), as flax's ``nn.remat``
+    does.  flax's remat is functional, so the running statistics take one
+    step; here the recomputation runs under :func:`frozen_stats`, and they
+    too take one step, in the forward."""
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return module(*a)
+        with frozen_stats(module):
+            return module(*a)
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+class Dropout(nn.Dropout):
+    """flax's ``nn.Dropout``: in training each element is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``, by a mask drawn
+    from ``generator`` (on the input's device; torch's default generator
+    when None)."""
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 class ConvBNReLU(nn.Module):
@@ -25,7 +120,7 @@ class ConvBNReLU(nn.Module):
         pad = dilation * (kernel - 1) // 2
         self.atrous_conv = nn.Conv2d(cin, cout, kernel, padding=pad,
                                      dilation=dilation, bias=False)
-        self.bn = nn.BatchNorm2d(cout)
+        self.bn = BatchNorm2d(cout)
 
     def forward(self, x):
         return F.relu(self.bn(self.atrous_conv(x)))
@@ -41,9 +136,9 @@ class BasicBlock(nn.Module):
                  downsample: Optional[nn.Module] = None):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = downsample
 
     def forward(self, x):
@@ -73,16 +168,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = planes * expansion
         self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout))
+                BatchNorm2d(cout))
 
     def forward(self, x):
         idt = x if self.downsample is None else self.downsample(x)
@@ -121,7 +216,8 @@ class SELayer(nn.Module):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling (depthnet.py:42-116): 1x1 and 3x3
     d6/d12/d18 branches plus a global-average branch, concat -> 1x1 conv ->
-    BN -> ReLU (-> dropout, an identity in eval)."""
+    BN -> ReLU -> dropout (an identity in eval; in training its mask comes
+    from the ``generator`` of the call)."""
 
     def __init__(self, cin: int, mid: int, dropout: float = 0.5):
         super().__init__()
@@ -132,17 +228,17 @@ class ASPP(nn.Module):
         self.global_avg_pool = nn.Sequential(
             nn.AdaptiveAvgPool2d((1, 1)),
             nn.Conv2d(cin, mid, 1, bias=False),
-            nn.BatchNorm2d(mid), nn.ReLU())
+            BatchNorm2d(mid), nn.ReLU())
         self.conv1 = nn.Conv2d(mid * 5, cin, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cin)
-        self.dropout = nn.Dropout(dropout)
+        self.bn1 = BatchNorm2d(cin)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         b4 = self.aspp4(x)
         g = self.global_avg_pool(x).expand(-1, -1, *b4.shape[2:])
         y = torch.cat([self.aspp1(x), self.aspp2(x), self.aspp3(x), b4, g],
                       dim=1)
-        return self.dropout(F.relu(self.bn1(self.conv1(y))))
+        return self.dropout(F.relu(self.bn1(self.conv1(y))), generator)
 
 
 def upsample_bilinear_align(x: torch.Tensor, scale: int) -> torch.Tensor:

@@ -14,20 +14,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BasicBlock, Bottleneck, conv_basic_block
+from .layers import (BasicBlock, BatchNorm2d, Bottleneck,
+                     conv_basic_block, remat)
 
 
 class ResNet50(nn.Module):
     """torchvision-style ResNet-50 trunk returning the stage outputs in
-    ``out_indices`` (stage i has 256*2**i channels at stride 4*2**i)."""
+    ``out_indices`` (stage i has 256*2**i channels at stride 4*2**i).
+    With ``remat``, a training call recomputes each bottleneck in the
+    backward (the reference's ``with_cp=True``, DHD-S.py:52; JAX
+    ``dhd_tpu/nn/resnet.py:38-42``)."""
 
     def __init__(self, out_indices: Tuple[int, ...] = (2, 3),
-                 layers: Tuple[int, ...] = (3, 4, 6, 3)):
+                 layers: Tuple[int, ...] = (3, 4, 6, 3),
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.out_indices = tuple(out_indices)
         self.out_channels = tuple(256 * 2 ** i for i in self.out_indices)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         cin, planes = 64, 64
         for stage, n in enumerate(layers):
@@ -46,9 +52,11 @@ class ResNet50(nn.Module):
         stride-4 ``layer1`` output alone (the stereo extra-reference
         frame's path, bevstereo4d.py:20-40)."""
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        rematted = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = remat(block, x) if rematted else block(x)
             if stage0_only:
                 return x
             if stage in self.out_indices:

@@ -12,6 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import BatchNorm2d
+
 
 class ChannelSpatialStage(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
@@ -21,8 +23,8 @@ class ChannelSpatialStage(nn.Module):
             nn.Linear(channels, channels // reduction), nn.ReLU(),
             nn.Linear(channels // reduction, c))
         self.spacial_leanring = nn.Sequential(       # (sic) reference name
-            nn.Conv2d(c, c, 1), nn.BatchNorm2d(c), nn.ReLU(),
-            nn.Conv2d(c, c, 1), nn.BatchNorm2d(c))
+            nn.Conv2d(c, c, 1), BatchNorm2d(c), nn.ReLU(),
+            nn.Conv2d(c, c, 1), BatchNorm2d(c))
 
     def forward(self, x):
         c = x.shape[1] // 2
@@ -41,12 +43,12 @@ class SFA(nn.Module):
         self.mysk_7 = ChannelSpatialStage(in_channels)
         self.mix_residual = nn.Sequential(
             nn.Conv2d(c, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels), nn.ReLU(),
+            BatchNorm2d(out_channels), nn.ReLU(),
             nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels))
+            BatchNorm2d(out_channels))
         self.mix_shortcut = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 1, bias=False),
-            nn.BatchNorm2d(out_channels))
+            BatchNorm2d(out_channels))
 
     def forward(self, x):
         return F.relu(self.mix_residual(self.mysk_7(x))

@@ -10,15 +10,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import BatchNorm2d
+
 
 class DoubleConv(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.double_conv = nn.Sequential(
             nn.Conv2d(cin, cout, 3, padding=1, bias=False),
-            nn.BatchNorm2d(cout), nn.ReLU(inplace=True),
+            BatchNorm2d(cout), nn.ReLU(inplace=True),
             nn.Conv2d(cout, cout, 3, padding=1, bias=False),
-            nn.BatchNorm2d(cout), nn.ReLU(inplace=True))
+            BatchNorm2d(cout), nn.ReLU(inplace=True))
 
     def forward(self, x):
         return self.double_conv(x)

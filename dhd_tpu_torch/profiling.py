@@ -47,6 +47,13 @@ def trace_device(run: Callable[[], None], device: torch.device,
         (then template arguments stay in the names, so instantiations stay
         apart).
       clock: 'device' for CUDA device times, 'host' for a CPU-only run.
+      ranges: {range name: reading} over all its executions: host_ms (the
+        host's time in the range), syncs and sync_host_ms (the host's
+        synchronize calls inside it and their time) and, on a GPU,
+        device_span_ms (first to last device event of the range) and
+        kernel_ms (the kernels and copies inside that span).
+      syncs: {"syncs": n, "sync_host_ms": t}, every synchronize call the
+        host made in the run.
     """
     on_gpu = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + (
@@ -80,6 +87,31 @@ def trace_device(run: Callable[[], None], device: torch.device,
             op_events[key] += 1
             if not collapse:
                 op_hlo.setdefault(key, e.name)
+    syncs = [e for e in events if e.device_type == DeviceType.CPU
+             and "Synchronize" in e.name]
+    readings: Dict[str, Dict] = {}
+    for name in ranges:
+        cpu = [e for e in events
+               if e.name == name and e.device_type == DeviceType.CPU]
+        if not cpu:
+            continue
+        lo, hi = cpu[0].time_range.start, cpu[-1].time_range.end
+        inside = [e for e in syncs
+                  if lo <= e.time_range.start and e.time_range.end <= hi]
+        reading = {"host_ms": sum(e.cpu_time_total for e in cpu) / 1e3,
+                   "syncs": len(inside),
+                   "sync_host_ms": sum(e.cpu_time_total
+                                       for e in inside) / 1e3}
+        dev = [e for e in events if e.name == name and e.device_type == kind]
+        if on_gpu and dev:
+            g0 = min(e.time_range.start for e in dev)
+            g1 = max(e.time_range.end for e in dev)
+            reading["device_span_ms"] = (g1 - g0) / 1e3
+            reading["kernel_ms"] = sum(
+                e.time_range.elapsed_us() for e in events
+                if e.device_type == kind and e.name not in cpu_names
+                and g0 <= e.time_range.start < g1) / 1e3
+        readings[name] = reading
     if not on_gpu:
         # no device: the host's self time of each operator
         for e in prof.key_averages():
@@ -88,7 +120,9 @@ def trace_device(run: Callable[[], None], device: torch.device,
                 op_events[e.key] += e.count
     return {"modules": dict(modules), "ops": dict(ops),
             "op_events": dict(op_events), "op_hlo": op_hlo,
-            "clock": "device" if on_gpu else "host"}
+            "clock": "device" if on_gpu else "host", "ranges": readings,
+            "syncs": {"syncs": len(syncs), "sync_host_ms": sum(
+                e.cpu_time_total for e in syncs) / 1e3}}
 
 
 def module_ms(prof: Dict, name_substr: str, drop_first: int = 0

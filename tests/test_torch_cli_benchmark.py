@@ -1,8 +1,8 @@
 """The port's benchmark CLI (dhd_tpu_torch.cli.benchmark) run in-process
 on the CPU with ``--device cpu``, on the tiny presets: every mode prints
-the JAX CLI's lines with finite times; the modes that need unported slices
-exit non-zero naming ROADMAP.md; without ``--device`` and without a GPU it
-raises."""
+the JAX CLI's lines with finite times (``train`` its losses too); the mode
+that needs an unported slice exits non-zero naming ROADMAP.md; without
+``--device`` and without a GPU it raises."""
 import dataclasses
 import math
 import re
@@ -97,12 +97,36 @@ def test_profile_prints_ranges_and_top_ops(capsys):
                 if re.match(r"\s+[\d.]+ ms\s+x\d+", ln)]) == 5
 
 
-@pytest.mark.parametrize("what", ["train", "exported"])
+@pytest.mark.parametrize("what", ["exported"])
 def test_unported_modes_exit_naming_the_roadmap(what):
     with pytest.raises(SystemExit) as e:
         main(["--what", what, "--device", "cpu"])
     assert e.value.code not in (0, None)
     assert "ROADMAP.md" in str(e.value.code)
+
+
+def test_train_prints_ms_per_step_and_finite_losses(capsys):
+    """``--what train``: the whole train step in fp32 whatever ``--bf16``
+    says; ms/step, samples/s and a busy time, all finite, and finite
+    losses; on the CPU the memory is not measured and the times are the
+    host's."""
+    out = _run(capsys, "--preset", "dhd_tiny", "--what", "train",
+               "--profile-ops", "3")
+    _lines(out, "dhd_tiny train step:", "host busy (one traced step):")
+    assert "fp32, B=1" in out
+    assert "peak memory: not measured" in out
+    losses = dict(kv.split("=") for kv in re.search(
+        r"^losses: (.*)$", out, re.M).group(1).split())
+    assert {"loss_total", "loss_height", "loss_occ", "grad_norm"} <= \
+        set(losses)
+    assert all(math.isfinite(float(v)) for v in losses.values())
+    assert "device busy" not in out
+
+
+def test_train_pool_plan_is_single_frame_only():
+    with pytest.raises(SystemExit, match="single-frame"):
+        main(["--preset", "dhd_micro_stereo", "--what", "train",
+              "--pool-plan", "--device", "cpu", "--iters", "1"])
 
 
 def test_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
