@@ -98,7 +98,7 @@ Phases, one line each; any failure raises and exits non-zero:
    losses be finite); every time it prints must be finite;
 16. training: DHD-S at full width in fp32, B=4 (ResNet-50 with remat,
    HeightNet with DCN and ASPP, dropout from a generator), synthetic data
-   with GT on the device, 2 warm-up and 5 timed train steps (forward in
+   with GT on the device, 2 warm-up and 3 timed train steps (forward in
    train mode, losses, backward through B1's autograd.Function with its
    plan built in the call, clip, AdamW, EMA) in PyTorch's default TF32
    mode, which the line states: ms/step, samples/s, peak memory, every
@@ -109,15 +109,35 @@ Phases, one line each; any failure raises and exits non-zero:
    saved ones), whose next step gives the live run's losses bit for bit
    and AdamW's first moment within 1e-3; then B1 and its plan kernels
    against their plain versions at that step's own fp32 B=4 inputs and
-   keys (B1 within 1e-5 plus 2^-20 of the terms, two calls
-   bit-identical; the plan's tables equal), with their times;
-17. one train step at the full learning rate of dhd_tiny (dropout off)
-   and dhd_micro_stereo (B3 in the forward) on the GPU against the same
-   step on the CPU, TF32 off: losses within 1e-4; gradients and AdamW's
-   moments held in rel-L2 (the whole, the median and the worst tensor)
-   to bars 2.5-6x the readings, beside a control (the CPU's step on
-   images one part in 2^22 larger); the GPU's update within 1e-5 of a
-   learning rate of AdamW's formula on its own moments.
+   keys (B1 within 1e-5 plus 2^-20 of the terms of the plain version's
+   exact sums, two calls
+   bit-identical; the plan's tables equal), with their times; then the
+   same training in bf16 mixed precision (the forward in bf16 over fp32
+   weights), 2 + 3 steps: ms/step, memory, B1 once a step, every stored
+   tensor fp32, one traced step;
+17. one train step at the full learning rate of dhd_tiny (dropout off),
+   dhd_micro_stereo (B3 in the forward) and the tiny DHD-L-shaped config
+   (DropPath off; B4 and B5 in its history frames) on the GPU against the
+   same step on the CPU, TF32 off: losses within 1e-4; gradients and
+   AdamW's moments held in rel-L2 (the whole, the median and the worst
+   tensor) to bars 2.5-6x the readings, beside a control (the CPU's step
+   on images one part in 2^22 larger); the GPU's update within 1e-5 of a
+   learning rate of AdamW's formula on its own moments;
+18. training: DHD-L at full width (Swin-B at 512x1408 with block remat
+   and DropPath 0.1, FPN_LSS, stereo, one history frame), B=2, in bf16
+   mixed precision and in fp32 (at B=1 if B=2 does not fit), 2 + 3 steps
+   each: ms/step, samples/s, peak memory; B1, its plan kernels and B3
+   twice a step, B4 and B5 in the history and extra frames (26 and 59 a
+   step); every loss finite, every stored tensor fp32, the BatchNorms'
+   statistics stepped once per frame; one traced step's device busy
+   time, idle share, top kernels, host syncs and forward stage ms; then
+   one more step with every kernel's inputs recorded where the model
+   calls it: B1 and its plan kernels (as phases 2 and 11, fp32 against
+   the exact sums) and B3 (as phase 5) at the history and the key
+   frame's inputs, B4 and B5 held against their plain versions at each
+   of their 26 and 59 calls (bf16 as phases 9 and 10; fp32 B4 within
+   1e-5 + 1e-5 |y|, B5 within 1e-5 plus 2^-20 of the terms), each
+   shape's first call timed beside its plain version and library call.
 
 Phases 4, 8, 13 and 17 compare fp32 on the GPU with the CPU and turn TF32
 off in cuDNN and matmul for their run; the others run in PyTorch's
@@ -125,8 +145,8 @@ defaults.
 
 Then one JSON line listing the kernels B1-B5 and B1's plan kernels
 (each shape's numbers under
-``shapes``, launches per served path, per CLI run and over phase 16's
-timed train steps under ``launches_by_path``), the
+``shapes``, launches per served path, per CLI run and over the timed
+train steps of phases 16 and 18 under ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
@@ -168,14 +188,22 @@ TERM_TOL = 2.0 ** -20       # B5 (and B1 at DHD-L) vs plain, per element:
 #                             from (fp32 sum order only; where the terms
 #                             cancel the result is tiny and so are its ulps)
 LN_FLOPS = 8                # per element: x, x^2 sums; sub, mul, fma, ...
+ATTN_F32_TOL = 1e-5         # fp32 B4 vs plain: atol and rtol, the bar
+#                             tests/test_torch_cuda.py holds the kernel to
+LN_F32_ATOL = 1e-5          # fp32 B5 vs plain, plus 2^-20 of the terms
 # the phase that prints each check, by preset
 PHASE_OF = {"dhd_s": {"pool": 2}, "hot": {"pool": 14},
             "dhd_s_train": {"pool": 16},
             "dhd_m": {"pool": 6, "cv": 5, "stream": 7},
             "dhd_l": {"pool": 11, "cv": 11, "stream": 12}}
+# B1, its plan and B3 at the inputs of one DHD-L train step, by frame
+PHASE_OF.update({f"dhd_l_train_{p}_{f}": {"pool": 18, "cv": 18}
+                 for p in ("bf16", "fp32") for f in ("history", "key")})
 SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device clock ahead of each timed call
-TRAIN_WARMUP, TRAIN_STEPS = 2, 5    # DHD-S train steps, phase 16
+TRAIN_WARMUP, TRAIN_STEPS = 2, 3    # DHD-S train steps, phase 16
+TRAIN_STEPS_BF16 = 3                # DHD-S bf16 timed steps, phase 16
+TRAIN_STEPS_DHD_L = 3               # DHD-L timed steps a precision, phase 18
 TRAIN_LOSS_RTOL = 1e-4      # GPU vs CPU fp32 train-step losses, phase 17
 TRAIN_RESUME_TOL = 3e-5     # grad_norm of a resumed step vs the live one
 #                             (the backward's atomics: 9.7e-8 to 6.9e-6)
@@ -384,8 +412,9 @@ def pool_case(dev, preset):
 
 def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None, case=None):
     """B1 kernel vs its plain version at the inputs of :func:`pool_case`,
-    or of ``case`` (:func:`train_pool_case`: a train step's own fp32
-    inputs, held to POOL_F32_ATOL plus 2^-20 of the terms); also B1 with
+    or of ``case`` (:func:`pool_cases`: a train step's own inputs, in
+    fp32 held to POOL_F32_ATOL plus 2^-20 of the terms of the exact
+    sums); also B1 with
     the plan built in the call, as a frame without a cached plan pools.
     Returns the plan."""
     from dhd_tpu_torch.ops import (build_pool_plan, mghs_pool_cuda,
@@ -413,11 +442,23 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None, case=None):
     share = max(sum_error_share(bev_k, bev_p, bev_a, atol),
                 sum_error_share(vox_k, vox_p, vox_a, atol))
     if fp32:
-        check(share <= 1, f"mghs_pool_cuda fp32 at {preset} differs from "
-              f"plain by {err:.3e} ({share:.3f} of {POOL_F32_ATOL} plus "
-              f"2^-20 of the terms)")
-        bar = (f"{share:.3f} of {POOL_F32_ATOL} plus 2^-20 of the terms "
-               f"(tol 1)")
+        # in fp32 the plain version's index_add_ rounds about as much as
+        # the kernel, in the order its atomics take (the line prints both
+        # against exact sums): hold the kernel to the plain version's exact
+        # sums of the same products
+        exact = mghs_pool_plan_plain(depth, feat, band_mask, plan,
+                                     acc_dtype=torch.float64)
+        own = max(sum_error_share(bev_k, exact[0], bev_a, atol),
+                  sum_error_share(vox_k, exact[1], vox_a, atol))
+        plain_own = max(sum_error_share(bev_p, exact[0], bev_a, atol),
+                        sum_error_share(vox_p, exact[1], vox_a, atol))
+        del exact
+        check(own <= 1, f"mghs_pool_cuda fp32 at {preset} differs from "
+              f"the plain version's exact sums by {own:.3f} of "
+              f"{POOL_F32_ATOL} plus 2^-20 of the terms")
+        bar = (f"{own:.3f} of {POOL_F32_ATOL} plus 2^-20 of the terms from "
+               f"the exact sums (tol 1; the fp32 plain version "
+               f"{plain_own:.3f}, kernel vs fp32 plain {share:.3f})")
     else:
         ulps = max(bf16_ulp_diff(bev_k, bev_p),
                    bf16_ulp_diff(vox_k, vox_p))
@@ -425,7 +466,8 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None, case=None):
         # cancels is many of its own bf16 ulps off for an fp32-level
         # difference: there the bar is one ulp plus 2^-20 of the terms'
         # magnitudes
-        check(ulps <= POOL_ULP_TOL or (preset == "dhd_l" and share <= 1),
+        check(ulps <= POOL_ULP_TOL
+              or (preset.startswith("dhd_l") and share <= 1),
               f"mghs_pool_cuda differs from plain by {ulps} bf16 ulps "
               f"({share:.3f} of one ulp plus 2^-20 of the terms)")
         bar = (f"max {ulps} bf16 ulp (tol {POOL_ULP_TOL}), {share:.3f} of "
@@ -803,9 +845,12 @@ def host_syncs(run, n_top: int = 8):
             run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("Synchronization debug mode is a prototype
+    # feature", once a process) is no sync
     where = collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
+        if "synchroniz" in str(w.message)
+        and "prototype" not in str(w.message))
     return sum(where.values()), where.most_common(n_top)
 
 
@@ -890,13 +935,33 @@ def cv_inputs(dev, preset):
     return prev, curr, uf, vf, cfg.depthnet_cfg.bias
 
 
-def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None):
+def warp0_exact(prev, uf, vf, idx):
+    """Channel 0 of ``prev`` warped bilinearly (zero padding) to the
+    samples ``idx`` (index tensors over (BN, D, Hs, Ws)) in float64, and
+    the sum of its terms' magnitudes."""
+    bn, hs, ws, _ = prev.shape
+    b = idx[0]
+    u, v = uf[idx].double(), vf[idx].double()
+    x0, y0 = torch.floor(u), torch.floor(v)
+    val, terms = torch.zeros_like(u), torch.zeros_like(u)
+    for dy, wy in ((0, 1 - (v - y0)), (1, v - y0)):
+        for dx, wx in ((0, 1 - (u - x0)), (1, u - x0)):
+            yy, xx = y0.long() + dy, x0.long() + dx
+            inside = (yy >= 0) & (yy < hs) & (xx >= 0) & (xx < ws)
+            t = prev[b, yy.clamp(0, hs - 1), xx.clamp(0, ws - 1), 0]
+            t = torch.where(inside, t.double() * wx * wy, 0.0)
+            val, terms = val + t, terms + t.abs()
+    return val, terms
+
+
+def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None, case=None):
     """B3 kernel vs its plain version at the geometry of ``preset``: the
     stride-4 stereo feature of DHD-M (ResNet-50 layer1, C=256) or DHD-L
-    (Swin-B stage 0, C=128)."""
+    (Swin-B stage 0, C=128); or at ``case``, the (prev, curr, uf, vf,
+    bias) a train step gave it (:func:`record_train_step`)."""
     from dhd_tpu_torch.ops import cv_cost_plain, stereo_cost_volume_cuda
 
-    prev, curr, uf, vf, bias = cv_inputs(dev, preset)
+    prev, curr, uf, vf, bias = case or cv_inputs(dev, preset)
     bn, _, hs, ws = uf.shape
     c = prev.shape[-1]
 
@@ -916,7 +981,19 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None):
           f"{prob_err:.3e} (atol {CV_ATOL}, rtol {CV_RTOL})")
     hit_p = (cost_p - no_bias) > bias / 2
     hit_k = (cost_k - no_bias) > bias / 2
-    check(bool((hit_p == hit_k).all()), "bias landed on other samples")
+    # the bias goes where the warped channel 0 is exactly 0: the two may
+    # part only where the exact warped value is within fp32 rounding
+    # (TERM_TOL) of its terms, zero in one order of the fp32 sum only
+    flips = (hit_p != hit_k).nonzero(as_tuple=True)
+    n_flips = flips[0].numel()
+    if n_flips:
+        near, terms = warp0_exact(prev, uf, vf, flips)
+        # no terms (every tap off the image or zero): 0 in any order
+        flip_share = float(torch.where(terms > 0, near.abs() / terms,
+                                       math.inf).max())
+        check(flip_share <= TERM_TOL, f"bias landed on {n_flips} other "
+              f"samples, the exact warped channel 0 there up to "
+              f"{flip_share:.3e} of its terms (tol 2^-20)")
     off = uf < -1e3
     n_off = int(off.sum())
     n_valid = off.numel() - n_off
@@ -930,7 +1007,7 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None):
                                                       bias))
     # least time: features, plan and cost each moved once; fp32 flops of
     # the samples this rig needs
-    nbytes = (2 * (prev.numel() + curr.numel())
+    nbytes = (prev.element_size() * (prev.numel() + curr.numel())
               + 4 * (uf.numel() + vf.numel() + cost_k.numel()))
     flops = c * (CV_FLOPS_VALID * n_valid + CV_FLOPS_OFF * n_off)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
@@ -950,12 +1027,16 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None):
     kern["max_abs_err"] = max(kern["max_abs_err"], err)
     print(f"phase {PHASE_OF[preset]['cv']} ok: stereo_cost_volume_cuda vs "
           f"plain at {preset}: "
-          f"({bn}, {uf.shape[1]}, {hs}, {ws}) samples x C={c} bf16, bias "
+          f"({bn}, {uf.shape[1]}, {hs}, {ws}) samples x C={c} "
+          f"{str(prev.dtype)[6:]}, bias "
           f"{bias}; max abs cost err {err:.3e} (costs up to "
           f"{float(cost_p.abs().max()):.1f}), max prob err {prob_err:.3e} "
           f"(atol {CV_ATOL}, rtol {CV_RTOL}); invalid share "
           f"{share_invalid:.4f} (off-image {n_off / off.numel():.4f}, "
-          f"channel-0 zeros {share_zero:.4f}); kernel {ms:.4f} ms, plain "
+          f"channel-0 zeros {share_zero:.4f}; "
+          + (f"{n_flips} samples apart, the exact warped channel 0 there "
+             f"{flip_share:.2e} of its terms" if n_flips else "the same "
+             "samples") + f"); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {measured['bound_ms']:.4f} ms "
           f"({measured['bound_by']}, {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB; {measured['bound_share']:.3f} of the "
@@ -971,14 +1052,19 @@ def bf16_ulp_at(x: torch.Tensor) -> float:
 
 
 def ln_error(y_k, y_p, x, w, b, eps=1e-6):
-    """B5 vs plain: the largest distance in bf16 ulps, and the largest
-    error as a share of its tolerance: one ulp plus ``TERM_TOL`` of
-    (|x| + |mu|)·|mul| + |bias|."""
+    """B5 vs plain: the largest distance in bf16 ulps (0 in fp32), and the
+    largest error as a share of its tolerance: one bf16 ulp (fp32:
+    LN_F32_ATOL) plus ``TERM_TOL`` of the terms, (|x| + mean |x|)·|mul| +
+    |bias|.  mean |x| is the magnitude of mu's terms: where a row's
+    mean cancels to near 0 (a row already normalised), mu's fp32
+    rounding follows mean |x|, not |mu|."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0)
     mul = (torch.rsqrt(var + eps) * w).abs()
-    terms = (xf.abs() + mu.abs()) * mul + b.abs()
+    terms = (xf.abs() + xf.abs().mean(-1, keepdim=True)) * mul + b.abs()
+    if x.dtype == torch.float32:
+        return 0, sum_error_share(y_k, y_p, terms, LN_F32_ATOL)
     return bf16_ulp_diff(y_k, y_p), sum_error_share(y_k, y_p, terms)
 
 
@@ -1060,6 +1146,21 @@ def per_frame_summary(kern) -> str:
             f"device time, at {wins_host} with the host's work")
 
 
+def attention_library(qkv, bias, mask, heads, n_img):
+    """The library call for B4's function: SDPA over (W / n_img, n_img *
+    heads, N, hd), the bias + mask of an image's ``n_img`` windows
+    broadcast over the images (``mask`` None: no shift)."""
+    w, n, c3 = qkv.shape
+    hd = c3 // 3 // heads
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        w // n_img, n_img, n, 3, heads, hd).permute(3, 0, 1, 4, 2, 5)
+        .reshape(3, w // n_img, n_img * heads, n, hd))
+    am = (bias[None] + (mask[:, None] if mask is not None else 0)
+          ).expand(n_img, heads, n, n).reshape(n_img * heads, n, n)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=am, scale=hd ** -0.5)
+
+
 def phase_attention(dev, kernels, ptxas):
     """B4 vs plain at DHD-L's four Swin-B stages (6 images, window 12),
     shifted with the real mask and unshifted, and at one shape JAX sends to
@@ -1104,21 +1205,13 @@ def phase_attention(dev, kernels, ptxas):
         check(ulps <= ATTN_ULP_TOL, f"window_attention_cuda {label}: "
               f"{ulps:.2f} bf16 ulps of the peak from plain (tol "
               f"{ATTN_ULP_TOL})")
-        # the library call: SDPA over (B, nW*h, N, hd) with the bias + mask
-        # of each image's windows broadcast over the images
-        q, k, v = (t.contiguous() for t in qkv.reshape(
-            bn, n_img, n, 3, heads, hd).permute(3, 0, 1, 4, 2, 5).reshape(
-                3, bn, n_img * heads, n, hd))
-        am = (bias[None] + (mask[:, None] if mask is not None else 0)
-              ).expand(n_img, heads, n, n).reshape(n_img * heads, n, n)
         nbytes = 2 * (qkv.numel() + out_k.numel() + bias.numel()
                       + (mask.numel() if mask is not None else 0))
         flops = w * heads * 4 * n * n * hd
         m = time_kernel_and_plain(
             kern, label, lambda: window_attention_cuda(qkv, bias, mask, heads),
             lambda: window_attention_plain(qkv, bias, mask, heads),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=am, scale=hd ** -0.5),
+            attention_library(qkv, bias, mask, heads, n_img),
             nbytes, flops, BF16_FLOP_PER_S, err, per_frame)
         print(f"phase 9 ok: window_attention_cuda vs plain at {label} "
               f"(W={w}, N={n}, C={c}, heads={heads}, hd={hd}, bf16): max "
@@ -1128,7 +1221,7 @@ def phase_attention(dev, kernels, ptxas):
               f"{flops / 1e9:.2f} GFLOP; on the CUDA cores in fp32 at least "
               f"{1e3 * flops / FP32_FLOP_PER_S:.4f} ms); {per_frame} per "
               f"DHD-L frame", flush=True)
-        del qkv, out_k, out_p, q, k, v, am
+        del qkv, out_k, out_p
     kern.update({key: kern["shapes"]["stage2_shifted"][key]
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")})
@@ -1660,19 +1753,88 @@ def on_device(batch: dict, dev) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
+def stored_dtypes(model, opt, ema) -> set:
+    """The dtypes of everything a training run keeps: params, gradients,
+    AdamW's moments, the floating buffers (BN running statistics) and the
+    EMA."""
+    out = {p.dtype for p in model.parameters()}
+    out |= {p.grad.dtype for p in model.parameters() if p.grad is not None}
+    out |= {b.dtype for b in model.buffers() if b.is_floating_point()}
+    out |= {t.dtype for st in opt.adamw.state.values()
+            for t in (st["exp_avg"], st["exp_avg_sq"])}
+    return out | {t.dtype for t in ema.shadow.values()}
+
+
+def timed_train(cfg, dev, b, counted, compute_dtype=None,
+                steps=TRAIN_STEPS):
+    """``cfg`` trained at B=``b`` as ``cli/train`` trains it (the forward in
+    ``compute_dtype``): one synthetic batch with GT from seed 0 on the
+    device, TRAIN_WARMUP warm-up steps, then ``steps`` timed (host wall
+    time to a synchronize) with the launches of the ``counted`` wrappers
+    set to 0 just before and read just after.  Every loss must be finite
+    and every stored tensor fp32.  Returns the run's state and readings."""
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.train import train_step
+
+    batch = on_device(synthetic_batch(cfg, b, seed=0, with_gt=True), dev)
+    model, opt, ema, gen = train_setup(cfg, dev)
+
+    def one_step():
+        return train_step(model, opt, ema, batch, gen,
+                          compute_dtype=compute_dtype)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        one_step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = one_step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          f"{cfg.name} train metrics not finite: {metrics}")
+    want_updates = cfg.optim.ema_init_updates + TRAIN_WARMUP + steps
+    check(ema.updates == want_updates and opt.count == TRAIN_WARMUP + steps,
+          f"EMA counter {ema.updates}, want {want_updates}")
+    kept = stored_dtypes(model, opt, ema)
+    check(kept == {torch.float32}, f"{cfg.name} keeps {kept}, want fp32")
+    return {"model": model, "opt": opt, "ema": ema, "gen": gen,
+            "batch": batch, "one_step": one_step, "step_ms": step_ms,
+            "metrics": metrics, "launches": launches, "peak_gb": peak_gb,
+            "warm_s": warm_s, "n_params": sum(p.numel()
+                                              for p in model.parameters())}
+
+
+def train_line(run, b) -> str:
+    """ms/step median, samples/s, the steps, warm-up and peak memory."""
+    step = statistics.median(run["step_ms"])
+    return (f"{step:.2f} ms/step median = {b / step * 1e3:.2f} samples/s "
+            f"(steps {', '.join(f'{t:.2f}' for t in run['step_ms'])}; "
+            f"{TRAIN_WARMUP} warm-up steps {run['warm_s']:.1f} s), peak "
+            f"memory {run['peak_gb']:.2f} GB")
+
+
 def phase_train(dev, kernels, card):
     """DHD-S training at full width: fp32, B=4, 6 cameras at 256x704,
     ResNet-50 with remat, HeightNet with DCN and ASPP (dropout 0.5 from a
     generator), synthetic data with GT from seed 0, on the device before
-    timing.  2 warm-up steps, then 5 timed (host wall time to a
+    timing.  2 warm-up steps, then 3 timed (host wall time to a
     synchronize); B1 and its plan kernels once a step; one traced step
     (trace_device) and one under the sync debug mode; then a checkpoint of
     the state after them, loaded into a new model, whose next step must
     give the live run's losses (the forward is deterministic; the
     backward's atomics are not, so its gradient norm is held to
-    TRAIN_RESUME_TOL and its params to two learning rates)."""
+    TRAIN_RESUME_TOL and its params to two learning rates).  Then the same
+    training in bf16 mixed precision, 2 + 3 steps, with its traced step."""
     from dhd_tpu_torch import get_config
-    from dhd_tpu_torch.data import synthetic_batch
     from dhd_tpu_torch.io import load_checkpoint, save_checkpoint
     from dhd_tpu_torch.ops import mghs_pool_cuda
     from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
@@ -1680,50 +1842,27 @@ def phase_train(dev, kernels, card):
 
     cfg = get_config("dhd_s")
     b = 4
-    batch = on_device(synthetic_batch(cfg, b, seed=0, with_gt=True), dev)
-    model, opt, ema, gen = train_setup(cfg, dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
-        train_step(model, opt, ema, batch, gen)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     counted = (mghs_pool_cuda, pool_plan_cuda)
-    for fn in counted:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, metrics = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        m = train_step(model, opt, ema, batch, gen)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        metrics.append({k: float(v) for k, v in m.items()})
-    launches = {fn.__name__: fn.launches for fn in counted}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run = timed_train(cfg, dev, b, counted)
+    model, opt, ema, gen, batch = (run[k] for k in ("model", "opt", "ema",
+                                                    "gen", "batch"))
+    launches, metrics = run["launches"], run["metrics"]
     for fn in counted:
         kernels[fn.__name__]["launches_by_path"]["train"] = fn.launches
         check(fn.launches == TRAIN_STEPS, f"{fn.__name__} launched "
               f"{fn.launches} times in {TRAIN_STEPS} train steps, want "
               f"{TRAIN_STEPS}")
-    check(all(np.isfinite(v) for m in metrics for v in m.values()),
-          f"train metrics not finite: {metrics}")
     want_updates = cfg.optim.ema_init_updates + TRAIN_WARMUP + TRAIN_STEPS
-    check(ema.updates == want_updates and opt.count == TRAIN_WARMUP
-          + TRAIN_STEPS, f"EMA counter {ema.updates}, want {want_updates}")
-    step = statistics.median(step_ms)
-    print(f"phase 16 ok: DHD-S fp32 train step, B={b}, {n_params / 1e6:.1f} "
-          f"M params, remat, DCN, ASPP dropout 0.5 ({tf32_mode()}): "
-          f"{step:.2f} ms/step median = {b / step * 1e3:.2f} samples/s "
-          f"(steps {', '.join(f'{t:.2f}' for t in step_ms)}; "
-          f"{TRAIN_WARMUP} warm-up steps {warm_s:.1f} s), peak memory "
-          f"{peak_gb:.2f} GB; launches {launches}; EMA counter "
-          f"{ema.updates}; last step "
+    step = statistics.median(run["step_ms"])
+    print(f"phase 16 ok: DHD-S fp32 train step, B={b}, "
+          f"{run['n_params'] / 1e6:.1f} M params, remat, DCN, ASPP dropout "
+          f"0.5 ({tf32_mode()}): {train_line(run, b)}; launches {launches}; "
+          f"EMA counter {ema.updates}; last step "
           + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics[-1].items()))
           + f"; on {card}", flush=True)
 
-    def one_step():
-        return train_step(model, opt, ema, batch, gen)
+    one_step = run["one_step"]
+    del run
     busy, top, trace = device_busy_ms(one_step, n_top=10)
     n_sync, sync_at = host_syncs(one_step)
     # the forward of each top-level module by CUDA events ("frame": the
@@ -1786,15 +1925,156 @@ def phase_train(dev, kernels, card):
     del buf
 
     # B1 and its plan kernels at this step's own fp32 B=4 inputs and keys
-    case = train_pool_case(cfg, model, batch,
-                           lambda: train_step(model, opt, ema, batch, gen))
+    calls = record_train_step(lambda: train_step(model, opt, ema, batch,
+                                                 gen))
     del model, opt, ema
     torch.cuda.empty_cache()
+    cases = pool_cases(cfg, calls)
+    check(len(cases) == 1, f"B1 called {len(cases)} times in a train step")
     phase_plan(dev, kernels, "dhd_s_train",
-               phase_kernel(dev, kernels, "dhd_s_train", case=case),
-               keys=case[5])
-    del case
+               phase_kernel(dev, kernels, "dhd_s_train", case=cases[0]),
+               keys=cases[0][5])
+    del calls, cases
     torch.cuda.empty_cache()
+
+    # the same training in bf16 mixed precision
+    steps = TRAIN_STEPS_BF16
+    run = timed_train(cfg, dev, b, counted, torch.bfloat16, steps)
+    for fn in counted:
+        kernels[fn.__name__]["launches_by_path"]["train_bf16"] = fn.launches
+        check(fn.launches == steps, f"{fn.__name__} launched {fn.launches} "
+              f"times in {steps} bf16 train steps, want {steps}")
+    step = statistics.median(run["step_ms"])
+    busy, top, _ = device_busy_ms(run["one_step"], n_top=6)
+    print(f"phase 16 bf16 ok: DHD-S bf16 mixed-precision train step, B={b} "
+          f"(fp32 params, gradients, moments, statistics and EMA): "
+          f"{train_line(run, b)}; launches {run['launches']}; last step "
+          + " ".join(f"{k}={v:.5f}" for k, v in
+                     sorted(run["metrics"][-1].items()))
+          + f"; device busy {busy:.2f} ms of {step:.2f} ms/step, idle share "
+          f"{1 - busy / step:.3f}; top kernels (ms) "
+          + ", ".join(f"{n[:60]} {t:.3f}" for n, t in top), flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+
+def swin_launches_per_step(cfg) -> dict:
+    """B4's and B5's launches in one DHD-L train step with its history:
+    the history frame's whole Swin (a window attention a block; a
+    LayerNorm for the patch embedding, two a block, one a PatchMerging and
+    one an output stage) and the extra stereo frame's stage 0 (the patch
+    embedding and stage 0's blocks); the key frame takes the plain
+    versions under autograd."""
+    d = cfg.swin_depths
+    return {"window_attention_cuda": sum(d) + d[0],
+            "fused_layer_norm_cuda": (1 + 2 * sum(d) + len(d) - 1
+                                      + len(cfg.swin_out_indices))
+            + 1 + 2 * d[0]}
+
+
+def phase_train_dhd_l(dev, kernels, card):
+    """DHD-L training at full width: Swin-B at 512x1408 with block remat
+    and DropPath 0.1, FPN_LSS, the stereo cost volume, one history frame
+    and the extra stereo frame, B=2 (the reference's per-GPU batch),
+    synthetic data with GT from seed 0 on the device, AdamW from step 0.
+    In bf16 mixed precision, then in fp32 (at B=1 if B=2 runs out of
+    memory): 2 warm-up and 3 timed steps each; B1, its plan kernels and
+    B3 twice a step (history and key frame), B4 and B5 in the history and
+    extra frames (``swin_launches_per_step``); every loss finite; params,
+    gradients, moments, statistics and EMA fp32; each BatchNorm steps
+    its running statistics once per frame it runs in (the image neck
+    twice a step, the BEV encoder once); one traced step's device busy
+    time, idle share and top kernels, its host syncs and forward stage
+    ms; then every kernel held against its plain version at the inputs
+    one more step gives it (:func:`record_train_step`), timed under
+    ``shapes`` as ``dhd_l_train_<precision>_<frame or shape>``."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.ops import (fused_layer_norm_cuda, mghs_pool_cuda,
+                                   stereo_cost_volume_cuda,
+                                   window_attention_cuda)
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+
+    cfg = get_config("dhd_l")
+    counted = (mghs_pool_cuda, pool_plan_cuda, stereo_cost_volume_cuda,
+               window_attention_cuda, fused_layer_norm_cuda)
+    per_step = {"mghs_pool_cuda": 2, "pool_plan_cuda": 2,
+                "stereo_cost_volume_cuda": 2, **swin_launches_per_step(cfg)}
+    steps = TRAIN_STEPS_DHD_L
+    for name, dt, b in (("bf16", torch.bfloat16, 2), ("fp32", None, 2)):
+        try:
+            run = timed_train(cfg, dev, b, counted, dt, steps)
+        except torch.cuda.OutOfMemoryError as e:
+            check(b == 2 and dt is None, f"DHD-L {name} B={b}: {e}")
+            torch.cuda.empty_cache()
+            print(f"phase 18: DHD-L fp32 at B=2 does not fit on the card "
+                  f"({str(e).splitlines()[0]}); fp32 at B=1", flush=True)
+            b = 1
+            run = timed_train(cfg, dev, b, counted, dt, steps)
+        launches = run["launches"]
+        for fn in counted:
+            kernels[fn.__name__]["launches_by_path"][
+                f"train_dhd_l_{name}"] = fn.launches
+        check(launches == {k: v * steps for k, v in per_step.items()},
+              f"DHD-L {name} launches {launches} in {steps} steps, want "
+              f"{per_step} a step")
+        model = run["model"]
+        tracked = {k: int(v) for k, v in model.state_dict().items()
+                   if k.endswith("num_batches_tracked")}
+        total = TRAIN_WARMUP + steps
+        check(tracked["img_neck.conv.1.num_batches_tracked"] == 2 * total
+              and tracked["img_bev_encoder_neck.conv.1.num_batches_tracked"]
+              == total and set(tracked.values()) <= {total, 2 * total},
+              f"DHD-L {name} BatchNorm steps {tracked} after {total} steps")
+        step = statistics.median(run["step_ms"])
+        one_step = run["one_step"]
+        busy, top, trace = device_busy_ms(one_step, n_top=10)
+        n_sync, sync_at = host_syncs(one_step)
+        stages = stage_ms(model, one_step)
+        print(f"phase 18 ok: DHD-L {name} train step"
+              + (" (bf16 mixed precision: fp32 params, gradients, moments, "
+                 "statistics and EMA)" if dt else "")
+              + f", B={b}, {run['n_params'] / 1e6:.1f} M params, Swin-B "
+              f"remat, DropPath 0.1, one history frame ({tf32_mode()}): "
+              f"{train_line(run, b)}; launches a step "
+              f"{ {k: v // steps for k, v in launches.items()} }; last step "
+              + " ".join(f"{k}={v:.5f}" for k, v in
+                         sorted(run["metrics"][-1].items()))
+              + f"; on {card}", flush=True)
+        print(f"phase 18 {name} breakdown: device busy {busy:.2f} ms of "
+              f"{step:.2f} ms/step, idle share {1 - busy / step:.3f}; host "
+              f"syncs per step {n_sync} ({trace['frame']['syncs']} "
+              f"synchronize calls in the trace) at {sync_at}; forward stage "
+              f"ms (CUDA events) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + "; top kernels (ms) "
+              + ", ".join(f"{n[:60]} {t:.3f}" for n, t in top), flush=True)
+
+        # every kernel of the step against its plain version at the
+        # inputs this step gives it: B1, its plan and B3 in the history
+        # and the key frame; B4 and B5 at each of their calls
+        swin = {}
+        calls = record_train_step(one_step, swin_holds(swin))
+        del run, model, one_step
+        torch.cuda.empty_cache()
+        prefix = f"dhd_l_train_{name}_"
+        cases = pool_cases(cfg, calls)
+        check(len(cases) == 2 and len(calls["stereo_cost_volume_cuda"]) == 2
+              and {k: sum(r["calls"] for r in rows.values())
+                   for k, rows in swin.items()}
+              == swin_launches_per_step(cfg),
+              f"DHD-L {name}: a step's calls B1 {len(cases)}, B3 "
+              f"{len(calls['stereo_cost_volume_cuda'])}, B4/B5 "
+              f"{ {k: len(v) for k, v in swin.items()} } shapes")
+        for frame, case, (args, _) in zip(
+                ("history", "key"), cases, calls["stereo_cost_volume_cuda"]):
+            phase_plan(dev, kernels, prefix + frame,
+                       phase_kernel(dev, kernels, prefix + frame, case=case),
+                       keys=case[5])
+            phase_cost_volume(dev, kernels, prefix + frame, case=args)
+        del calls, cases
+        hold_swin_calls(kernels, prefix, swin)
+        del swin
+        torch.cuda.empty_cache()
 
 
 def first_moments(model, opt) -> dict:
@@ -1804,30 +2084,162 @@ def first_moments(model, opt) -> dict:
             for p, st in opt.adamw.state.items()}
 
 
-def train_pool_case(cfg, model, batch, step):
-    """The inputs B1 takes in one train step (``step()``) of ``model``,
-    recorded where the view transformer calls it: (cfg, plan, depth, feat,
-    band_mask, (vt, PoolIndices, cams shape)), as :func:`phase_kernel`
-    and :func:`phase_plan` take them."""
-    import dhd_tpu_torch.models.dhd as dhd
+# the kernel wrappers of the training path, by the module that calls them
+TRAIN_CALLS = (("dhd_tpu_torch.models.dhd", "build_pool_plan"),
+               ("dhd_tpu_torch.models.dhd", "mghs_pool_cuda"),
+               ("dhd_tpu_torch.ops.cost_volume", "stereo_cost_volume_cuda"),
+               ("dhd_tpu_torch.nn.swin", "window_attention_cuda"),
+               ("dhd_tpu_torch.nn.swin", "fused_layer_norm_cuda"))
 
-    real, seen = dhd.mghs_pool_cuda, []
 
-    def record(depth, feat, band_mask, plan):
-        seen.append((plan, depth.detach().clone(), feat.detach().clone(),
-                     band_mask.detach().clone()))
-        return real(depth, feat, band_mask, plan)
-    dhd.mghs_pool_cuda = record
+def record_train_step(step, inline=None) -> dict:
+    """Runs ``step()`` (one train step) with each function of TRAIN_CALLS
+    replaced, in the module that calls it, by one that calls it and keeps
+    a copy of its arguments (B1's plan, ``build_pool_plan``'s, is kept as
+    it is, with its result); where ``inline`` names the function,
+    ``inline[name](args, result)`` is called instead.  Returns the kept
+    calls by name, in their order."""
+    import importlib
+
+    calls = {name: [] for _, name in TRAIN_CALLS}
+
+    def keep(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
+
+    def recorded(name, real):
+        def call(*args):
+            out = real(*args)
+            if inline and name in inline:
+                inline[name](args, out)
+            else:
+                calls[name].append((tuple(keep(a) for a in args),
+                                    out if name == "build_pool_plan"
+                                    else None))
+            return out
+        return call
+    saved = []
+    for mod_name, name in TRAIN_CALLS:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, recorded(name, getattr(mod, name)))
     try:
         step()
     finally:
-        dhd.mghs_pool_cuda = real
-    check(len(seen) == 1, f"B1 called {len(seen)} times in a train step")
-    plan, depth, feat, band_mask = seen[0]
-    b, n, fh, fw, d = depth.shape
-    idx = dhd._pool_indices(cfg, model._geom(batch))
-    return (cfg, plan, depth, feat, band_mask,
-            (cfg.vt, idx, (b, n, d, fh, fw)))
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return calls
+
+
+def pool_cases(cfg, calls) -> list:
+    """B1's recorded calls (:func:`record_train_step`) as :func:`phase_kernel`
+    takes them: (cfg, plan, depth, feat, band_mask, (vt, PoolIndices, cams
+    shape)), the keys those of the ``build_pool_plan`` call that made the
+    plan."""
+    keys = {id(plan): (vt, idx, shape)
+            for (idx, vt, shape), plan in calls["build_pool_plan"]}
+    return [(cfg, plan, depth, feat, band_mask, keys[id(plan)])
+            for (depth, feat, band_mask, plan), _ in calls["mghs_pool_cuda"]]
+
+
+def swin_holds(counts: dict):
+    """``inline`` functions for :func:`record_train_step` that hold B4 and
+    B5 against their plain versions at every call of the step, on the
+    spot (a DHD-L step makes 85 of them, whose inputs would take GBs):
+    B4 bf16 within ATTN_ULP_TOL bf16 ulps of the output's peak, fp32
+    within ATTN_F32_TOL (atol and rtol); B5 within one bf16 ulp (fp32:
+    LN_F32_ATOL) plus 2^-20 of the terms (:func:`ln_error`).  ``counts``
+    gathers, per kernel and shape label, the calls, the worst share of
+    the bar, the largest abs error and the first call's arguments (for
+    the timings)."""
+    from dhd_tpu_torch.ops import layer_norm_plain, window_attention_plain
+
+    def note(kernel, label, args, err, share):
+        row = counts.setdefault(kernel, {}).setdefault(
+            label, {"calls": 0, "share": 0.0, "max_abs_err": 0.0,
+                    "args": tuple(a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args)})
+        row["calls"] += 1
+        row["share"] = max(row["share"], share)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    def attention(args, out_k):
+        qkv, bias, mask, heads = args
+        out_p = window_attention_plain(qkv, bias, mask, heads)
+        d = (out_k.float() - out_p.float()).abs()
+        if qkv.dtype == torch.bfloat16:
+            share = float(d.max()) / (ATTN_ULP_TOL * bf16_ulp_at(out_p))
+        else:
+            share = float((d / (ATTN_F32_TOL * (1 + out_p.abs()))).max())
+        label = (f"c{qkv.shape[2] // 3}_"
+                 f"{'unshifted' if mask is None else 'shifted'}")
+        note("window_attention_cuda", label, args, float(d.max()), share)
+
+    def layer_norm(args, y_k):
+        x, w, b, eps = args
+        y_p = layer_norm_plain(x, w, b, eps)
+        _, share = ln_error(y_k, y_p, x, w, b, eps)
+        c = x.shape[-1]
+        note("fused_layer_norm_cuda", f"{x.numel() // c}x{c}", args,
+             float((y_k.float() - y_p.float()).abs().max()), share)
+    return {"window_attention_cuda": attention,
+            "fused_layer_norm_cuda": layer_norm}
+
+
+def hold_swin_calls(kernels, prefix, counts) -> None:
+    """B4's and B5's readings from :func:`swin_holds`: every call within its
+    bar (printed first, then checked), and each shape's first call timed
+    with its plain version and the library call under ``shapes`` as
+    ``prefix + label`` (:func:`time_kernel_and_plain`)."""
+    from dhd_tpu_torch.ops import (fused_layer_norm_cuda, layer_norm_plain,
+                                   window_attention_cuda,
+                                   window_attention_plain)
+
+    for name, rows in counts.items():
+        kern = kernels[name]
+        for label, row in rows.items():
+            args = row["args"]
+            x = args[0]
+            rate = (BF16_FLOP_PER_S if x.dtype == torch.bfloat16
+                    else FP32_FLOP_PER_S)
+            if name == "window_attention_cuda":
+                qkv, bias, mask, heads = args
+                w, n, c3 = qkv.shape
+                n_img = 1 if mask is None else mask.shape[0]
+                nbytes = qkv.element_size() * (
+                    qkv.numel() + w * n * c3 // 3 + bias.numel()
+                    + (mask.numel() if mask is not None else 0))
+                m = time_kernel_and_plain(
+                    kern, prefix + label,
+                    lambda: window_attention_cuda(*args),
+                    lambda: window_attention_plain(*args),
+                    attention_library(qkv, bias, mask, heads, n_img),
+                    nbytes, w * heads * 4 * n * n * (c3 // 3 // heads),
+                    rate, row["max_abs_err"], row["calls"])
+                library = "SDPA"
+            else:
+                x, wt, b, eps = args
+                c = x.shape[-1]
+                w16, b16 = wt.to(x.dtype), b.to(x.dtype)
+                m = time_kernel_and_plain(
+                    kern, prefix + label,
+                    lambda: fused_layer_norm_cuda(*args),
+                    lambda: layer_norm_plain(*args),
+                    lambda: torch.nn.functional.layer_norm(
+                        x, (c,), w16, b16, eps),
+                    2 * x.element_size() * x.numel() + 2 * 4 * c,
+                    LN_FLOPS * x.numel(), FP32_FLOP_PER_S,
+                    row["max_abs_err"], row["calls"])
+                library = "F.layer_norm"
+            m["bar_share"] = row["share"]
+            print(f"phase 18: {name} vs plain at {prefix}{label} "
+                  f"({tuple(x.shape)} {str(x.dtype)[6:]}), {row['calls']} "
+                  f"calls a step, each held: worst {row['share']:.3f} of "
+                  f"the bar, max abs err {row['max_abs_err']:.3e}; "
+                  f"{timing_line(m, library)})", flush=True)
+    for name, rows in counts.items():
+        bad = {k: r["share"] for k, r in rows.items() if r["share"] > 1}
+        check(not bad, f"{name} differs from plain beyond its bar at "
+              f"{prefix}: {bad}")
 
 
 def adamw_update_error(cfg, before: dict, after: dict, moments: dict,
@@ -1849,10 +2261,11 @@ def adamw_update_error(cfg, before: dict, after: dict, moments: dict,
 
 
 def phase_train_small(dev):
-    """dhd_tiny (ASPP dropout off) and dhd_micro_stereo (F frames, B3 in
-    the forward) in fp32 without TF32: one train step at the full
-    learning rate (the schedule past its warmup) on the GPU and on the
-    CPU from the same weights and batch.  The losses within
+    """dhd_tiny (ASPP dropout off), dhd_micro_stereo (F frames, B3 in the
+    forward) and the tiny DHD-L-shaped config (Swin with block remat and
+    DropPath at 0; B4 and B5 in its history frames) in fp32 without TF32:
+    one train step at the full learning rate (the schedule past its
+    warmup) on the GPU and on the CPU from the same weights and batch.  The losses within
     TRAIN_LOSS_RTOL; the gradients and AdamW's first moment within
     GRAD_TOLS (rel-L2 of the whole, the median and the worst tensor:
     flipped ReLU gates move single tensors, ``train/compare.py``), the
@@ -1862,14 +2275,19 @@ def phase_train_small(dev):
     fp32 rounding alone moves the same numbers."""
     from dhd_tpu_torch import get_config
     from dhd_tpu_torch.data import synthetic_batch
-    from dhd_tpu_torch.ops import mghs_pool_cuda, stereo_cost_volume_cuda
+    from dhd_tpu_torch.nn.swin import DropPath
+    from dhd_tpu_torch.ops import (fused_layer_norm_cuda, mghs_pool_cuda,
+                                   stereo_cost_volume_cuda,
+                                   window_attention_cuda)
     from dhd_tpu_torch.train import (gradient_errors, train_step,
                                      zero_gradient_params)
 
     cpu = torch.device("cpu")
     tols = {"grad": GRAD_TOLS, "exp_avg": GRAD_TOLS, "exp_avg_sq": SQ_TOLS}
-    for name in ("dhd_tiny", "dhd_micro_stereo"):
-        cfg = get_config(name)
+    counted = (mghs_pool_cuda, stereo_cost_volume_cuda,
+               window_attention_cuda, fused_layer_norm_cuda)
+    for name in ("dhd_tiny", "dhd_micro_stereo", "tiny_dhd_l"):
+        cfg = tiny_dhd_l() if name == "tiny_dhd_l" else get_config(name)
         cfg = dataclasses.replace(
             cfg, heightnet_cfg=dataclasses.replace(cfg.heightnet_cfg,
                                                    aspp_dropout=0.0),
@@ -1877,10 +2295,13 @@ def phase_train_small(dev):
                                              aspp_dropout=0.0))
         batch = synthetic_batch(cfg, 2, seed=5, varied_rig=True)
         runs, weights = {}, None
-        before = (mghs_pool_cuda.launches, stereo_cost_volume_cuda.launches)
+        before = [fn.launches for fn in counted]
         for side, where, scale in (("gpu", dev, 1.0), ("cpu", cpu, 1.0),
                                    ("control", cpu, 1.0 + 2.0 ** -22)):
             model, opt, ema, _ = train_setup(cfg, where, seed=7)
+            for m in model.modules():
+                if isinstance(m, DropPath):
+                    m.rate = 0.0
             if weights is None:
                 weights = {k: v.cpu().clone()
                            for k, v in model.state_dict().items()}
@@ -1904,9 +2325,8 @@ def phase_train_small(dev):
                             for p, st in opt.adamw.state.items()}
             runs[side] = run
             if side == "gpu":
-                kernel_runs = (
-                    mghs_pool_cuda.launches - before[0],
-                    stereo_cost_volume_cuda.launches - before[1])
+                kernel_runs = tuple(fn.launches - n
+                                    for fn, n in zip(counted, before))
                 update_err = adamw_update_error(cfg, init, run["params"],
                                                 run, lr)
         zero = zero_gradient_params(model)
@@ -1920,13 +2340,16 @@ def phase_train_small(dev):
                    for key in tols}
         bad = [key for key, tol in tols.items()
                if any(r > t for r, t in zip(read[key], tol))]
+        swin = (tuple(swin_launches_per_step(cfg).values())
+                if cfg.backbone == "swin_base" else (0, 0))
         check(loss_err <= TRAIN_LOSS_RTOL and not bad
               and update_err <= UPDATE_LR_TOL
               and kernel_runs[0] == (2 if cfg.temporal else 1)
-              and (kernel_runs[1] > 0) == cfg.stereo,
+              and (kernel_runs[1] > 0) == cfg.stereo
+              and kernel_runs[2:] == swin,
               f"{name} train step GPU vs CPU: losses {loss_err:.2e}, "
-              f"{read} beyond {bad}, update {update_err:.2e} lr, B1/B3 "
-              f"launches {kernel_runs}")
+              f"{read} beyond {bad}, update {update_err:.2e} lr, B1/B3/B4/B5 "
+              f"launches {kernel_runs}, want B4/B5 {swin}")
 
         def fmt(r):
             return "/".join(f"{x:.2e}" for x in r)
@@ -1938,8 +2361,8 @@ def phase_train_small(dev):
               + ", ".join(f"{key} {fmt(read[key])} ({fmt(tols[key])}; "
                           f"{fmt(control[key])})" for key in tols)
               + f"; the GPU's update off AdamW's formula by {update_err:.2e}"
-              f" lr (tol {UPDATE_LR_TOL}); B1, B3 launches on the GPU "
-              f"{kernel_runs}", flush=True)
+              f" lr (tol {UPDATE_LR_TOL}); B1, B3, B4, B5 launches on the "
+              f"GPU {kernel_runs}", flush=True)
 
 
 def main() -> int:
@@ -1992,6 +2415,7 @@ def main() -> int:
     phase_train(dev, kernels, card)
     with full_fp32():
         phase_train_small(dev)
+    phase_train_dhd_l(dev, kernels, card)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))

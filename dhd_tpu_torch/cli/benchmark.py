@@ -15,7 +15,8 @@ step with a cached pool plan and the rig-static stereo warp plan),
 ``stages`` (each top-level module alone), ``flops`` (counted by
 ``torch.utils.flop_counter``), ``cv`` (the stereo cost volume in parts),
 ``pool`` (the pooling kernels and the raw segment-sum) and ``train`` (the
-whole train step in fp32, optionally with a precomputed pool plan).  It runs on the GPU
+whole train step, in bf16 mixed precision unless ``--fp32``, optionally
+with a precomputed pool plan).  It runs on the GPU
 unless ``--device cpu`` is given, where every kernel wrapper takes its
 plain version, and raises when there is no GPU and no ``--device``.  The
 inputs live on the device before timing; each timed loop runs one warm-up
@@ -339,18 +340,18 @@ def run_stages(args, cfg, dt, dev, batch) -> None:
 
 def run_train(args, cfg, dt, dev, batch) -> None:
     """The whole train step (``train.train_step``: forward in train mode,
-    losses, backward, clip, AdamW, EMA) on one synthetic batch with GT, in
-    fp32 whatever ``--bf16`` says (bf16 training, ROADMAP.md §A.4b, is not
-    ported yet).  It
-    prints ms/step and samples/s, the peak device memory, the last step's
-    losses, and the device-busy time of a traced step with its top
-    kernels; no MFU: the port has no FLOP count of the train step.
+    losses, backward, clip, AdamW, EMA) on one synthetic batch with GT:
+    bf16 mixed precision by default, as the JAX CLI trains (the forward in
+    bf16 over fp32 weights), ``--fp32`` the fp32 step.  It prints ms/step
+    and samples/s, the peak device memory, the last step's losses, and the
+    device-busy time of a traced step with its top kernels; no MFU: the
+    port has no FLOP count of the train step.
     ``--pool-plan`` ships a plan built once (single-frame presets: a
     temporal model pools each frame with its own geometry)."""
     from torch.profiler import record_function
 
     from dhd_tpu_torch.data import synthetic_batch
-    from dhd_tpu_torch.profiling import top_ops, trace_device
+    from dhd_tpu_torch.profiling import kernel_launches, top_ops, trace_device
     from dhd_tpu_torch.train import AdamWSchedule, ModelEMA, train_step
     tbatch = {k: torch.as_tensor(v, device=dev)
               for k, v in synthetic_batch(cfg, args.batch_size, seed=0,
@@ -369,24 +370,33 @@ def run_train(args, cfg, dt, dev, batch) -> None:
     ema = ModelEMA(model, cfg.optim.ema_init_updates, cfg.optim.ema_decay)
     gen = torch.Generator(device=dev).manual_seed(1)
     last = {}
+    precision = "bf16 mixed precision" if args.bf16 else "fp32"
 
     def step():
-        last.update(train_step(model, optimizer, ema, tbatch, gen))
+        last.update(train_step(model, optimizer, ema, tbatch, gen,
+                               compute_dtype=dt))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    before = kernel_launches()
     s = timed_s(step, args.iters, dev)
+    per_step = {k: (v - before[k]) / (args.iters + 1)
+                for k, v in kernel_launches().items()}
     tf32 = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
             f"cuda.matmul.allow_tf32="
             f"{torch.backends.cuda.matmul.allow_tf32}"
             if dev.type == "cuda" else "cpu")
     print(f"{args.preset} train step: {s * 1e3:.2f} ms/iter = "
-          f"{args.batch_size / s:.2f} samples/s (fp32, B={args.batch_size}; "
-          f"{tf32})")
+          f"{args.batch_size / s:.2f} samples/s ({precision}, "
+          f"B={args.batch_size}; {tf32})")
     print("peak memory: " + (
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
         if dev.type == "cuda" else "not measured (no device)"))
     print("losses: " + " ".join(f"{k}={float(v):.4f}"
                                 for k, v in sorted(last.items())))
+    launched = ", ".join(f"{k} {v:g}" for k, v in per_step.items() if v)
+    print(f"kernel launches a step: {launched or 'none'}"
+          + ("" if dev.type == "cuda" else " (the CPU runs the plain "
+             "versions)"))
 
     def run():
         with record_function("train_step"):

@@ -2,6 +2,8 @@
 reference's tools/train.py).
 
   python -m dhd_tpu_torch.cli.train --preset dhd_s --synthetic --steps 10
+  python -m dhd_tpu_torch.cli.train --preset dhd_l --synthetic --steps 2 \
+      --bf16
   python -m dhd_tpu_torch.cli.train --preset dhd_tiny --synthetic --steps 2 \\
       --device cpu --work-dir work_dirs/tiny
 
@@ -13,9 +15,11 @@ in the JAX CLI.  With ``--work-dir`` each logged step appends a line to
 holds the model, optimiser, EMA, step and dropout generator
 (``dhd_tpu_torch.io.save_checkpoint``); ``--resume-from`` and
 ``--auto-resume`` continue from one, ``--load-from`` warm-starts the
-model from a reference-keyed ``.pth`` state_dict.  The nuScenes loader
-(``--ann-file``), ``--bf16`` and multi-device runs are not ported yet: they
-exit 1 naming ROADMAP.md.
+model from a reference-keyed ``.pth`` state_dict.  ``--bf16`` is mixed
+precision as in the JAX CLI: the forward in bf16 over fp32 master weights,
+the losses, gradients, AdamW moments and EMA in fp32 (checkpoints are
+fp32 either way).  The nuScenes loader (``--ann-file``) and multi-device
+runs are not ported yet: they exit 1 naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ PER_GPU_BATCH = {"dhd_s": 4, "dhd_m": 3, "dhd_l": 2}
 N_SYNTHETIC_BATCHES = 4
 NOT_PORTED = {
     "ann_file": "--ann-file (the nuScenes loader, ROADMAP.md §A.6)",
-    "bf16": "--bf16 (mixed-precision training, ROADMAP.md §A.4b)",
 }
 
 
@@ -50,7 +53,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic data")
     p.add_argument("--bf16", action="store_true",
-                   help="mixed precision (not ported yet)")
+                   help="mixed precision: bf16 forward, fp32 weights")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-interval", type=int, default=50)
     p.add_argument("--ckpt-interval", type=int, default=1,
@@ -102,6 +105,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dhd_tpu_torch.device import resolve_device
     from dhd_tpu_torch.io import load_checkpoint, save_checkpoint
     from dhd_tpu_torch.models import build_model
+    from dhd_tpu_torch.profiling import kernel_launches
     from dhd_tpu_torch.train import AdamWSchedule, ModelEMA, train_step
 
     dev = resolve_device(args.device)
@@ -115,6 +119,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             yield synthetic_batch(cfg, batch_size=batch_size,
                                   seed=args.seed + i)
 
+    compute_dtype = torch.bfloat16 if args.bf16 else None
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.load_from:
@@ -133,6 +138,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if resume:
         step = load_checkpoint(resume, model, optimizer, ema, generator)
 
+    print(f"{cfg.name}: B={batch_size} on {dev}, "
+          f"{'bf16 mixed precision' if args.bf16 else 'fp32'}", flush=True)
     log_file = None
     if args.work_dir:
         os.makedirs(args.work_dir, exist_ok=True)
@@ -145,7 +152,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          or epoch > args.temporal_start_epoch)
             for batch in epoch_batches():
                 metrics = train_step(model, optimizer, ema, batch, generator,
-                                     with_prev=with_prev)
+                                     with_prev=with_prev,
+                                     compute_dtype=compute_dtype)
                 step += 1
                 last = bool(args.steps) and step >= args.steps
                 if step % args.log_interval == 0 or last:
@@ -171,6 +179,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         if log_file is not None:
             log_file.close()
+    if dev.type == "cuda":
+        print("kernel launches: " + ", ".join(
+            f"{k} {v}" for k, v in kernel_launches().items() if v),
+            flush=True)
     print("training done", flush=True)
     return 0
 

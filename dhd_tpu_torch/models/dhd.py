@@ -16,6 +16,7 @@ Module attributes follow the reference's state_dict key space
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Optional, Union
@@ -31,6 +32,7 @@ from dhd_tpu_torch.geometry import (create_frustum, frustum_to_ego,
 from dhd_tpu_torch.nn import (SFA, CustomFPN, CustomResNet, DeformConv,
                               DepthNet, FPN_LSS, HeightNet, OccHead, ResNet50,
                               SwinTransformer, TinyCNN, UNet)
+from dhd_tpu_torch.nn.layers import Conv2d
 from dhd_tpu_torch.nn.swin import WindowMSA
 from dhd_tpu_torch.ops import (PoolIndices, PoolPlan, build_pool_plan,
                                compute_pool_indices, mghs_pool,
@@ -55,7 +57,7 @@ def build_image_backbone(cfg: ModelConfig) -> nn.Module:
             cfg.swin_window, cfg.swin_out_indices,
             return_stereo_feat=cfg.stereo,
             attn_kernel=cfg.attn_method != "xla",
-            ln_kernel=cfg.ln_method != "xla")
+            ln_kernel=cfg.ln_method != "xla", remat=cfg.backbone_remat)
     raise NotImplementedError(cfg.backbone)
 
 
@@ -149,7 +151,7 @@ class MGHSTransform(nn.Module):
         self.cfg = cfg
         vt = cfg.vt
         if cfg.depth_net == "conv1x1":
-            self.depth_net = nn.Conv2d(vt.in_channels,
+            self.depth_net = Conv2d(vt.in_channels,
                                        vt.D + vt.out_channels, 1)
         elif cfg.depth_net == "full":
             self.depth_net = DepthNet(vt.in_channels, vt.in_channels,
@@ -283,11 +285,16 @@ class DHDNet(nn.Module):
     In eval mode a call records no autograd graph, whatever the grad mode
     (serving).  After ``model.train()`` a grad-enabled call is the training
     forward of the JAX package's ``train=True``: gradients flow, BatchNorms
-    use batch statistics and step their running ones, the ASPP dropout
-    draws from the call's ``generator``, and ResNet-50 recomputes its
-    bottlenecks in the backward where ``cfg.backbone_remat`` says so.
+    use batch statistics and step their running ones, the ASPP dropout and
+    the Swin's DropPath draw from the call's ``generator``, and the image
+    backbone recomputes its blocks in the backward where
+    ``cfg.backbone_remat`` says so.
+
+    The forward computes in :attr:`dtype`: the weights' own, or inside
+    :meth:`computing_in` another (bf16 mixed-precision training).
     """
     temporal = False
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
@@ -354,18 +361,42 @@ class DHDNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.occ_head.final_conv.conv.weight.dtype
+        """The dtype the forward computes in (the images' and, with them,
+        every layer's): the weights' own unless :meth:`computing_in` says
+        otherwise."""
+        return (self.compute_dtype
+                or self.occ_head.final_conv.conv.weight.dtype)
+
+    @contextlib.contextmanager
+    def computing_in(self, dtype: Optional[torch.dtype]):
+        """Inside, the forward computes in ``dtype`` (None: the weights'
+        dtype) over the weights as they are: the JAX package's
+        ``build_model(cfg, dtype=bf16)`` over fp32 params.  Each conv and
+        dense layer casts its weights to its input's dtype
+        (``nn/layers.py:Conv2d``); the softmaxes, the Layer- and
+        BatchNorm statistics, the camera-embedding BatchNorm, the pooled
+        sums and ``occ_logits`` stay fp32, as there.  The gradients reach
+        fp32 weights in fp32."""
+        saved = self.compute_dtype
+        self.compute_dtype = dtype
+        try:
+            yield self
+        finally:
+            self.compute_dtype = saved
 
     def _geom(self, batch: Dict[str, Any], keys=GEOM_KEYS
               ) -> Dict[str, torch.Tensor]:
         return {k: _as_tensor(batch[k], self.device, torch.float32)
                 for k in keys}
 
-    def _encode(self, imgs: torch.Tensor, stage0_only: bool = False):
+    def _encode(self, imgs: torch.Tensor, stage0_only: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Image encoder over (B*N, 3, H, W) images: the neck's features
         and, for a stereo model, the stride-4 stereo feature (the only
-        output with ``stage0_only``)."""
-        feats = self.img_backbone(imgs, stage0_only=stage0_only)
+        output with ``stage0_only``).  ``generator`` draws the Swin's
+        DropPath masks in training."""
+        feats = self.img_backbone(imgs, stage0_only=stage0_only,
+                                  generator=generator)
         if stage0_only:
             return None, feats
         stereo_feat = None
@@ -421,7 +452,8 @@ class DHDNet(nn.Module):
         imgs = _as_tensor(batch["imgs"], self.device, self.dtype)
         b, n, h, w, _ = imgs.shape
         x, _ = self._encode(
-            imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w))
+            imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w),
+            generator=generator)
         x = x.reshape((b, n) + x.shape[1:])
         vt_out = self.img_view_transformer(x, self._geom(batch),
                                            batch.get("pool_plan"),

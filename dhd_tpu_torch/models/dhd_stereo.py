@@ -15,8 +15,8 @@ Two entry points:
 * the F-frame forward ``model(batch, with_prev=...)`` over a frames-major
   batch (imgs (B, F, N, H, W, 3), frame 0 the key frame), what the eval
   path runs and, in train mode, the training forward: gradients reach the
-  key frame only, as in JAX (the history frames' grids and stereo
-  features, and the extra frame's, are detached; the cost volume has no
+  key frame only, as in JAX (the history frames and the extra frame run
+  under ``torch.no_grad``: JAX's stop-gradients; the cost volume has no
   gradient).
 
 Each processed frame runs the MGHS transform with a stereo cost volume
@@ -204,7 +204,8 @@ class DHDStereoNet(DHDNet):
         features (B*N, Hs, Ws, Cs) channels-last, or None."""
         b, n, h, w, _ = imgs.shape
         x, sfeat = self._encode(
-            imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w))
+            imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w),
+            generator=generator)
         sf = cv = None
         if self.cfg.stereo:
             sf = sfeat.permute(0, 2, 3, 1).contiguous()
@@ -290,9 +291,12 @@ class DHDStereoNet(DHDNet):
                 ) -> Dict[str, torch.Tensor]:
         """The F-frame forward (dhd_stereo.py:176-325): frames newest
         history first, the extra stereo reference frame contributing only
-        its stride-4 feature.  Only the key frame's own path keeps its
-        gradient (JAX's stop-gradients, dhd_tpu/models/dhd_stereo.py:234,
-        285-287)."""
+        its stride-4 feature.  Only the key frame records autograd: the
+        others run under ``torch.no_grad`` (JAX's stop-gradients,
+        dhd_tpu/models/dhd_stereo.py:234,285-287), in train mode all the
+        same (their BatchNorms step, their dropout and DropPath draw), and
+        there B4 and B5 launch and B1 runs outside its autograd
+        Function."""
         cfg = self.cfg
         vt = cfg.vt
         num_frames = cfg.num_frames
@@ -306,29 +310,31 @@ class DHDStereoNet(DHDNet):
         bev_list, vox_list = [], []
         depth_key = height_key = None
         prev_sf = None
+        grad = torch.is_grad_enabled()
         for fid in range(num_frames - 1, -1, -1):
             key_frame = fid == 0
             if not with_prev and not key_frame:
                 continue
-            if cfg.stereo and fid == num_frames - 1:     # extra reference
-                b, n, h, w, _ = imgs[:, fid].shape
-                _, sfeat = self._encode(imgs[:, fid].permute(
-                    0, 1, 4, 2, 3).reshape(b * n, 3, h, w), stage0_only=True)
-                prev_sf = sfeat.permute(0, 2, 3, 1).contiguous().detach()
-                continue
-            pool_fid = 0 if cfg.align_after_view_transformation else fid
-            geom = {k: v[:, fid] for k, v in views.items()}
-            geom.update(bda=bda, mlp_sensor2keyego=s2k[:, 0],
-                        sensor2keyego=s2k[:, pool_fid])
-            k2s = c2a[:, fid] if prev_sf is not None else None
-            out, sf = self._frame(imgs[:, fid], geom, prev_sf, k2s,
-                                  generator=generator)
+            with torch.set_grad_enabled(grad and key_frame):
+                if cfg.stereo and fid == num_frames - 1:  # extra reference
+                    b, n, h, w, _ = imgs[:, fid].shape
+                    _, sfeat = self._encode(
+                        imgs[:, fid].permute(0, 1, 4, 2, 3).reshape(
+                            b * n, 3, h, w), stage0_only=True,
+                        generator=generator)
+                    prev_sf = sfeat.permute(0, 2, 3, 1).contiguous()
+                    continue
+                pool_fid = 0 if cfg.align_after_view_transformation else fid
+                geom = {k: v[:, fid] for k, v in views.items()}
+                geom.update(bda=bda, mlp_sensor2keyego=s2k[:, 0],
+                            sensor2keyego=s2k[:, pool_fid])
+                k2s = c2a[:, fid] if prev_sf is not None else None
+                out, sf = self._frame(imgs[:, fid], geom, prev_sf, k2s,
+                                      generator=generator)
             if key_frame:
                 depth_key, height_key = out["depth"], out["height"]
             else:
-                out["bev"] = out["bev"].detach()
-                out["vox"] = out["vox"].detach()
-                prev_sf = None if sf is None else sf.detach()
+                prev_sf = sf
             bev_list.append(out["bev"])
             vox_list.append(out["vox"])
 

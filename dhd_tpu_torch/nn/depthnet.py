@@ -17,8 +17,8 @@ import torch.nn as nn
 
 from dhd_tpu_torch.config import DepthNetConfig
 from dhd_tpu_torch.device import device_constant
-from .layers import (ASPP, BasicBlock, BatchNorm1d, BatchNorm2d, Mlp,
-                     SELayer, conv1x1_basic_block)
+from .layers import (ASPP, BasicBlock, BatchNorm1d, BatchNorm2d, Conv2d,
+                     Mlp, SELayer, conv1x1_basic_block)
 
 _KY = (-1., -1., -1., 0., 0., 0., 1., 1., 1.)
 _KX = (-1., 0., 1., -1., 0., 1., -1., 0., 1.)
@@ -60,7 +60,7 @@ class DeformConv(nn.Module):
     def __init__(self, channels: int, groups: int = 4):
         super().__init__()
         self.groups = groups
-        self.conv_offset = nn.Conv2d(channels, 18, 3, padding=1)
+        self.conv_offset = Conv2d(channels, 18, 3, padding=1)
         nn.init.zeros_(self.conv_offset.weight)
         nn.init.zeros_(self.conv_offset.bias)
         self.weight = nn.Parameter(
@@ -80,7 +80,7 @@ class DeformConv(nn.Module):
         samp = bilinear_sample_abs(x, py, px)            # (B, C, 9, H, W)
         g = self.groups
         og, cg = self.weight.shape[0] // g, self.weight.shape[1]
-        wgt = self.weight.reshape(g, og, cg * 9)
+        wgt = self.weight.to(x.dtype).reshape(g, og, cg * 9)
         samp = samp.reshape(b, g, cg * 9, h * w)
         out = torch.einsum("gon,bgnp->bgop", wgt, samp)
         return out.reshape(b, g * og, h, w)
@@ -119,7 +119,7 @@ class _DistributionNet(nn.Sequential):
                              dropout=cfg.aspp_dropout))
         if cfg.use_dcn:
             mods.append(DeformConv(mid))
-        mods.append(nn.Conv2d(mid, out_bins, 1))
+        mods.append(Conv2d(mid, out_bins, 1))
         super().__init__(*mods)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -144,16 +144,16 @@ class HeightNet(nn.Module):
         super().__init__()
         self.stereo = cfg.stereo
         self.reduce_conv = nn.Sequential(
-            nn.Conv2d(in_ch, mid, 3, padding=1),
+            Conv2d(in_ch, mid, 3, padding=1),
             BatchNorm2d(mid), nn.ReLU(inplace=True))
         self.bn = EmbeddingBN(27)
         self.depth_mlp = Mlp(27, mid, mid)
         self.depth_se = SELayer(mid)
         if cfg.stereo:
             self.cost_volumn_net = nn.Sequential(
-                nn.Conv2d(out_bins, out_bins, 3, 2, 1),
+                Conv2d(out_bins, out_bins, 3, 2, 1),
                 BatchNorm2d(out_bins),
-                nn.Conv2d(out_bins, out_bins, 3, 2, 1),
+                Conv2d(out_bins, out_bins, 3, 2, 1),
                 BatchNorm2d(out_bins))
         self.depth_conv = _DistributionNet(mid, out_bins, cfg)
 
@@ -188,7 +188,7 @@ class DepthNet(HeightNet):
         super().__init__(in_ch, mid, depth_bins, cfg)
         self.context_mlp = Mlp(27, mid, mid)
         self.context_se = SELayer(mid)
-        self.context_conv = nn.Conv2d(mid, context_ch, 1)
+        self.context_conv = Conv2d(mid, context_ch, 1)
 
     def forward(self, x, mlp_input, cost_volume=None, generator=None):
         x, mlp = self._embed(x, mlp_input)

@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d, upsample_bilinear_align
+from .layers import BatchNorm2d, Conv2d, upsample_bilinear_align
 
 
 class _ConvHolder(nn.Module):
@@ -17,7 +17,7 @@ class _ConvHolder(nn.Module):
 
     def __init__(self, cin: int, cout: int, k: int, **kw):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, k, **kw)
+        self.conv = Conv2d(cin, cout, k, **kw)
 
     def forward(self, x):
         return self.conv(x)
@@ -69,16 +69,16 @@ class FPN_LSS(nn.Module):
         self.extra_upsample = extra_upsample
         mid = out_channels * (2 if extra_upsample else 1)
         self.conv = nn.Sequential(
-            nn.Conv2d(in_channels, mid, 3, padding=1, bias=False),
+            Conv2d(in_channels, mid, 3, padding=1, bias=False),
             BatchNorm2d(mid), nn.ReLU(inplace=True),
-            nn.Conv2d(mid, mid, 3, padding=1, bias=False),
+            Conv2d(mid, mid, 3, padding=1, bias=False),
             BatchNorm2d(mid), nn.ReLU(inplace=True))
         if extra_upsample:
             self.up2 = nn.Sequential(
                 nn.Identity(),          # the reference's nn.Upsample slot
-                nn.Conv2d(mid, out_channels, 3, padding=1, bias=False),
+                Conv2d(mid, out_channels, 3, padding=1, bias=False),
                 BatchNorm2d(out_channels), nn.ReLU(inplace=True),
-                nn.Conv2d(out_channels, out_channels, 1))
+                Conv2d(out_channels, out_channels, 1))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         x2 = feats[self.input_feature_index[0]]

@@ -5,6 +5,12 @@ template ``dhd_tpu/oracle/torch_ref.py`` uses), so a reference ``.pth`` or a
 converted JAX checkpoint loads with ``strict=True``.  BatchNorm keeps
 torch's keys and eval mode (eps 1e-5, running statistics); in training it
 is flax's ``nn.BatchNorm`` (:class:`BatchNorm2d`).
+
+Convolutions and dense layers compute in their input's dtype
+(:class:`Conv2d`, :class:`Linear`, :class:`ConvTranspose2d`), as flax's
+``dtype`` makes them: a model whose fp32 weights see bf16 activations runs
+a bf16 forward (mixed-precision training), and a model cast to bf16 runs
+as before.
 """
 from __future__ import annotations
 
@@ -18,6 +24,42 @@ from torch.utils.checkpoint import checkpoint
 
 # flax's BatchNorm momentum as the JAX package sets it (torch's 0.1)
 FLAX_BN_MOMENTUM = 0.9
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype
+          ) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """torch's Conv2d computing in its input's dtype: the weight and bias
+    are cast to it each call, as flax's ``nn.Conv(dtype=...)`` casts its
+    kernel and bias.  Over fp32 master weights and bf16 activations the
+    product is bf16 and the gradients reach the weights in fp32; a model
+    cast whole casts nothing."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """torch's ConvTranspose2d computing in its input's dtype (as
+    :class:`Conv2d`)."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
+
+
+class Linear(nn.Linear):
+    """torch's Linear computing in its input's dtype (as :class:`Conv2d`;
+    flax's ``nn.Dense(dtype=...)``)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
 class _FlaxTrainBN:
@@ -79,16 +121,20 @@ def frozen_stats(module: nn.Module):
 def remat(module: Callable, *args):
     """``module(*args)`` whose activations are recomputed in the backward
     instead of kept (``torch.utils.checkpoint``), as flax's ``nn.remat``
-    does.  flax's remat is functional, so the running statistics take one
-    step; here the recomputation runs under :func:`frozen_stats`, and they
-    too take one step, in the forward."""
+    does; ``module`` is a module or a bound method of one.  flax's remat
+    is functional, so the running statistics take one step; here the
+    recomputation runs under :func:`frozen_stats`, and they too take one
+    step, in the forward.  The recomputation restores torch's global RNG
+    states but not a generator passed in: draw random masks before, and
+    pass them in ``args``."""
+    owner = getattr(module, "__self__", module)
     calls = [0]
 
     def run(*a):
         calls[0] += 1
         if calls[0] == 1:
             return module(*a)
-        with frozen_stats(module):
+        with frozen_stats(owner):
             return module(*a)
     return checkpoint(run, *args, use_reentrant=False)
 
@@ -118,7 +164,7 @@ class ConvBNReLU(nn.Module):
                  dilation: int = 1):
         super().__init__()
         pad = dilation * (kernel - 1) // 2
-        self.atrous_conv = nn.Conv2d(cin, cout, kernel, padding=pad,
+        self.atrous_conv = Conv2d(cin, cout, kernel, padding=pad,
                                      dilation=dilation, bias=False)
         self.bn = BatchNorm2d(cout)
 
@@ -135,9 +181,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  downsample: Optional[nn.Module] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(cout)
-        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(cout)
         self.downsample = downsample
 
@@ -151,13 +197,13 @@ class BasicBlock(nn.Module):
 def conv_basic_block(cin: int, cout: int, stride: int) -> BasicBlock:
     """BasicBlock whose skip branch is a bare 3x3 conv with bias."""
     return BasicBlock(cin, cout, stride,
-                      downsample=nn.Conv2d(cin, cout, 3, stride, 1))
+                      downsample=Conv2d(cin, cout, 3, stride, 1))
 
 
 def conv1x1_basic_block(cin: int, cout: int) -> BasicBlock:
     """BasicBlock whose skip branch is a 1x1 conv with bias (the stereo
     DepthNet's first block, depthnet.py:204-206)."""
-    return BasicBlock(cin, cout, downsample=nn.Conv2d(cin, cout, 1))
+    return BasicBlock(cin, cout, downsample=Conv2d(cin, cout, 1))
 
 
 class Bottleneck(nn.Module):
@@ -167,16 +213,16 @@ class Bottleneck(nn.Module):
                  downsample: bool = False, expansion: int = 4):
         super().__init__()
         cout = planes * expansion
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False)
         self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                Conv2d(cin, cout, 1, stride, bias=False),
                 BatchNorm2d(cout))
 
     def forward(self, x):
@@ -192,8 +238,8 @@ class Mlp(nn.Module):
 
     def __init__(self, cin: int, hidden: int, cout: int):
         super().__init__()
-        self.fc1 = nn.Linear(cin, hidden)
-        self.fc2 = nn.Linear(hidden, cout)
+        self.fc1 = Linear(cin, hidden)
+        self.fc2 = Linear(hidden, cout)
 
     def forward(self, x):
         return self.fc2(F.relu(self.fc1(x)))
@@ -205,8 +251,8 @@ class SELayer(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv_reduce = nn.Conv2d(channels, channels, 1)
-        self.conv_expand = nn.Conv2d(channels, channels, 1)
+        self.conv_reduce = Conv2d(channels, channels, 1)
+        self.conv_expand = Conv2d(channels, channels, 1)
 
     def forward(self, x, x_se):
         g = self.conv_expand(F.relu(self.conv_reduce(x_se)))
@@ -227,9 +273,9 @@ class ASPP(nn.Module):
         self.aspp4 = ConvBNReLU(cin, mid, 3, dilation=18)
         self.global_avg_pool = nn.Sequential(
             nn.AdaptiveAvgPool2d((1, 1)),
-            nn.Conv2d(cin, mid, 1, bias=False),
+            Conv2d(cin, mid, 1, bias=False),
             BatchNorm2d(mid), nn.ReLU())
-        self.conv1 = nn.Conv2d(mid * 5, cin, 1, bias=False)
+        self.conv1 = Conv2d(mid * 5, cin, 1, bias=False)
         self.bn1 = BatchNorm2d(cin)
         self.dropout = Dropout(dropout)
 

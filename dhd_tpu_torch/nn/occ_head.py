@@ -11,6 +11,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .fpn import _ConvHolder
+from .layers import Linear
 
 
 class OccHead(nn.Module):
@@ -30,8 +31,8 @@ class OccHead(nn.Module):
         self.final_conv = _ConvHolder(in_dim, out_ch, 3, padding=1)
         if use_predicter:
             self.predicter = nn.Sequential(
-                nn.Linear(out_dim, out_dim * 2), nn.Softplus(),
-                nn.Linear(out_dim * 2, Dz * num_classes))
+                Linear(out_dim, out_dim * 2), nn.Softplus(),
+                Linear(out_dim * 2, Dz * num_classes))
 
     def forward(self, x) -> torch.Tensor:
         # mmcv ConvModule's default act is ReLU (occ_head.py:52-60); then

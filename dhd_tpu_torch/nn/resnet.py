@@ -8,13 +8,13 @@ branch is a bare 3x3 conv).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (BasicBlock, BatchNorm2d, Bottleneck,
+from .layers import (BasicBlock, BatchNorm2d, Bottleneck, Conv2d,
                      conv_basic_block, remat)
 
 
@@ -32,7 +32,7 @@ class ResNet50(nn.Module):
         self.remat = remat
         self.out_indices = tuple(out_indices)
         self.out_channels = tuple(256 * 2 ** i for i in self.out_indices)
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         cin, planes = 64, 64
@@ -47,10 +47,13 @@ class ResNet50(nn.Module):
             planes *= 2
         self.num_stages = len(layers)
 
-    def forward(self, x, stage0_only: bool = False):
+    def forward(self, x, stage0_only: bool = False,
+                generator: Optional[torch.Generator] = None):
         """The stage outputs in ``out_indices``; with ``stage0_only`` the
         stride-4 ``layer1`` output alone (the stereo extra-reference
-        frame's path, bevstereo4d.py:20-40)."""
+        frame's path, bevstereo4d.py:20-40).  ``generator`` is unused: it
+        is the image backbones' shared signature (the Swin draws from
+        it)."""
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
         rematted = self.remat and self.training and torch.is_grad_enabled()
         outs = []
@@ -106,9 +109,11 @@ class TinyCNN(nn.Module):
         self.out_channels = ((channels[1],) if emit_stereo else ()) + (
             channels[-1], channels[-1])
 
-    def forward(self, x, stage0_only: bool = False):
+    def forward(self, x, stage0_only: bool = False,
+                generator: Optional[torch.Generator] = None):
         """The features listed in ``out_channels``; with ``stage0_only``
-        the stride-4 feature alone."""
+        the stride-4 feature alone.  ``generator`` is unused, as in
+        :class:`ResNet50`."""
         outs = []
         for i in range(self.num_blocks):
             x = getattr(self, f"b{i}")(x)

@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, Conv2d, Linear
 
 
 class ChannelSpatialStage(nn.Module):
@@ -20,11 +20,11 @@ class ChannelSpatialStage(nn.Module):
         super().__init__()
         c = channels // 2
         self.fc = nn.Sequential(
-            nn.Linear(channels, channels // reduction), nn.ReLU(),
-            nn.Linear(channels // reduction, c))
+            Linear(channels, channels // reduction), nn.ReLU(),
+            Linear(channels // reduction, c))
         self.spacial_leanring = nn.Sequential(       # (sic) reference name
-            nn.Conv2d(c, c, 1), BatchNorm2d(c), nn.ReLU(),
-            nn.Conv2d(c, c, 1), BatchNorm2d(c))
+            Conv2d(c, c, 1), BatchNorm2d(c), nn.ReLU(),
+            Conv2d(c, c, 1), BatchNorm2d(c))
 
     def forward(self, x):
         c = x.shape[1] // 2
@@ -42,12 +42,12 @@ class SFA(nn.Module):
         c = in_channels // 2
         self.mysk_7 = ChannelSpatialStage(in_channels)
         self.mix_residual = nn.Sequential(
-            nn.Conv2d(c, out_channels, 3, padding=1, bias=False),
+            Conv2d(c, out_channels, 3, padding=1, bias=False),
             BatchNorm2d(out_channels), nn.ReLU(),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
+            Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
             BatchNorm2d(out_channels))
         self.mix_shortcut = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 1, bias=False),
+            Conv2d(in_channels, out_channels, 1, bias=False),
             BatchNorm2d(out_channels))
 
     def forward(self, x):

@@ -1,12 +1,14 @@
-"""Swin Transformer backbone (DHD-L's Swin-B) for inference: counterpart
-of ``dhd_tpu/nn/swin.py`` (the reference's mmcv-flavoured Swin,
+"""Swin Transformer backbone (DHD-L's Swin-B): counterpart of
+``dhd_tpu/nn/swin.py`` (the reference's mmcv-flavoured Swin,
 models/backbones/swin.py:680-976).
 
 4x4 conv patch embed + LayerNorm, stages of W-MSA / SW-MSA blocks with a
 relative position bias, unfold-ordered PatchMerging, LayerNorm heads on the
 ``out_indices`` stages, and with ``return_stereo_feat`` first the stage-0
-(stride-4, un-normed) feature for the stereo cost volume.  DropPath is the
-identity at inference and is left out.
+(stride-4, un-normed) feature for the stereo cost volume.  In training each
+block drops its two residual branches per image (DropPath, rates rising
+linearly to ``drop_path_rate``; masks from the call's generator) and, with
+``remat``, is recomputed in the backward.
 
 Window attention runs kernel B4 (``ops/window_attention.py``) and every
 LayerNorm kernel B5 (``ops/layer_norm.py``) unless the module is built
@@ -36,6 +38,7 @@ from dhd_tpu_torch.ops.layer_norm import (fused_layer_norm_cuda,
                                           layer_norm_plain)
 from dhd_tpu_torch.ops.window_attention import (window_attention_cuda,
                                                 window_attention_plain)
+from .layers import Conv2d, Linear, remat
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -157,8 +160,8 @@ class WindowMSA(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.kernel = kernel
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer(
@@ -217,29 +220,77 @@ class FFN(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.layers = nn.Sequential(
-            nn.Sequential(nn.Linear(dim, hidden), nn.GELU()),
-            nn.Linear(hidden, dim))
+            nn.Sequential(Linear(dim, hidden), nn.GELU()),
+            Linear(hidden, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x)
 
 
+class DropPath(nn.Module):
+    """Stochastic depth (dhd_tpu/nn/swin.py:134-145): in training each
+    image of the (B, L, C) batch keeps its residual branch with
+    probability ``1 - rate``, scaled by ``1 / (1 - rate)``; the identity
+    in eval mode and at rate 0.  The mask is drawn (:meth:`draw`) apart
+    from its use, so that a recomputed block reuses it."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def draw(self, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Optional[torch.Tensor]:
+        """The (B, 1, 1) keep mask of ``x``'s images from ``generator`` (on
+        x's device; torch's default generator when None), or None where
+        the branch is kept whole."""
+        if not self.training or self.rate == 0.0:
+            return None
+        return torch.rand((x.shape[0], 1, 1), generator=generator,
+                          device=x.device) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+        if mask is None:
+            return x
+        return x * mask.to(x.dtype) / (1.0 - self.rate)
+
+
 class SwinBlock(nn.Module):
-    """x + SW-MSA(norm1(x)), then x + FFN(norm2(x))."""
+    """x + DropPath(SW-MSA(norm1(x))), then x + DropPath(FFN(norm2(x))).
+    With ``remat`` a training call is recomputed in the backward
+    (``nn.remat(SwinBlock)``, dhd_tpu/nn/swin.py:343)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift: bool, mlp_ratio: int = 4, attn_kernel: bool = True,
-                 ln_kernel: bool = True):
+                 ln_kernel: bool = True, drop_path: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         self.norm1 = FusedLayerNorm(dim, kernel=ln_kernel)
         self.attn = ShiftWindowMSA(dim, num_heads, window_size, shift,
                                    attn_kernel)
         self.norm2 = FusedLayerNorm(dim, kernel=ln_kernel)
         self.ffn = FFN(dim, dim * mlp_ratio)
+        self.dp1 = DropPath(drop_path)
+        self.dp2 = DropPath(drop_path)
+        self.remat = remat
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), hw)
-        return x + self.ffn(self.norm2(x))
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Both DropPath masks are drawn from ``generator`` before the
+        block runs: the recomputation of a rematerialised block reuses
+        them (and the generator steps once a call)."""
+        masks = (self.dp1.draw(x, generator), self.dp2.draw(x, generator))
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(self._residuals, x, hw, *masks)
+        return self._residuals(x, hw, *masks)
+
+    def _residuals(self, x: torch.Tensor, hw: Tuple[int, int],
+                   mask1: Optional[torch.Tensor],
+                   mask2: Optional[torch.Tensor]) -> torch.Tensor:
+        x = x + self.dp1(self.attn(self.norm1(x), hw), mask1)
+        return x + self.dp2(self.ffn(self.norm2(x)), mask2)
 
 
 class PatchMerging(nn.Module):
@@ -250,7 +301,7 @@ class PatchMerging(nn.Module):
     def __init__(self, dim: int, ln_kernel: bool = True):
         super().__init__()
         self.norm = FusedLayerNorm(4 * dim, kernel=ln_kernel)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]
                 ) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -271,7 +322,7 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, embed_dims: int, ln_kernel: bool = True):
         super().__init__()
-        self.projection = nn.Conv2d(3, embed_dims, 4, stride=4)
+        self.projection = Conv2d(3, embed_dims, 4, stride=4)
         self.norm = FusedLayerNorm(embed_dims, kernel=ln_kernel)
 
     def forward(self, x: torch.Tensor
@@ -286,16 +337,28 @@ class PatchEmbed(nn.Module):
 
 
 class SwinStage(nn.Module):
+    """``depth`` blocks, alternately unshifted and shifted, with the
+    DropPath rates ``drop_paths``; then the PatchMerging, which
+    :class:`SwinTransformer` runs."""
+
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, downsample: bool, attn_kernel: bool,
-                 ln_kernel: bool):
+                 ln_kernel: bool, drop_paths: Sequence[float], remat: bool):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, shift=d % 2 == 1,
-                      attn_kernel=attn_kernel, ln_kernel=ln_kernel)
+                      attn_kernel=attn_kernel, ln_kernel=ln_kernel,
+                      drop_path=drop_paths[d], remat=remat)
             for d in range(depth))
         self.downsample = (PatchMerging(dim, ln_kernel) if downsample
                            else None)
+
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x, hw, generator)
+        return x
 
 
 def _nchw(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -305,7 +368,10 @@ def _nchw(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 class SwinTransformer(nn.Module):
     """Swin backbone: (B, 3, H, W) images -> [stereo feature?] + the
     normed ``out_indices`` stage outputs, NCHW (swin.py:946-971).
-    ``out_channels`` lists their channels."""
+    ``out_channels`` lists their channels.  Block i of all ``total`` drops
+    its branches at ``drop_path_rate * i / (total - 1)`` in training
+    (swin.py:338-339); with ``remat`` a training call recomputes each
+    block in the backward."""
 
     def __init__(self, embed_dims: int = 128,
                  depths: Sequence[int] = (2, 2, 18, 2),
@@ -313,15 +379,20 @@ class SwinTransformer(nn.Module):
                  window_size: int = 12,
                  out_indices: Sequence[int] = (2, 3),
                  return_stereo_feat: bool = True,
-                 attn_kernel: bool = True, ln_kernel: bool = True):
+                 attn_kernel: bool = True, ln_kernel: bool = True,
+                 drop_path_rate: float = 0.1, remat: bool = False):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.return_stereo_feat = return_stereo_feat
         self.patch_embed = PatchEmbed(embed_dims, ln_kernel)
+        total = sum(depths)
+        dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        starts = np.cumsum((0,) + tuple(depths))
         self.stages = nn.ModuleList(
             SwinStage(embed_dims * 2 ** i, depth, num_heads[i], window_size,
                       downsample=i < len(depths) - 1,
-                      attn_kernel=attn_kernel, ln_kernel=ln_kernel)
+                      attn_kernel=attn_kernel, ln_kernel=ln_kernel,
+                      drop_paths=dpr[starts[i]:starts[i + 1]], remat=remat)
             for i, depth in enumerate(depths))
         for i in self.out_indices:
             self.add_module(f"norm{i}", FusedLayerNorm(embed_dims * 2 ** i,
@@ -330,15 +401,16 @@ class SwinTransformer(nn.Module):
                              + tuple(embed_dims * 2 ** i
                                      for i in self.out_indices))
 
-    def forward(self, x: torch.Tensor, stage0_only: bool = False
+    def forward(self, x: torch.Tensor, stage0_only: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> List[torch.Tensor]:
         """The maps listed in ``out_channels``; with ``stage0_only`` the
-        stage-0 feature alone (the stereo extra-reference frame's path)."""
+        stage-0 feature alone (the stereo extra-reference frame's path).
+        ``generator`` draws the DropPath masks in training."""
         x, hw = self.patch_embed(x)
         outs = []
         for i, stage in enumerate(self.stages):
-            for blk in stage.blocks:
-                x = blk(x, hw)
+            x = stage(x, hw, generator)
             out, out_hw = x, hw
             if i == 0 and (self.return_stereo_feat or stage0_only):
                 if stage0_only:

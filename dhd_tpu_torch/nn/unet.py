@@ -10,16 +10,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
 
 
 class DoubleConv(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.double_conv = nn.Sequential(
-            nn.Conv2d(cin, cout, 3, padding=1, bias=False),
+            Conv2d(cin, cout, 3, padding=1, bias=False),
             BatchNorm2d(cout), nn.ReLU(inplace=True),
-            nn.Conv2d(cout, cout, 3, padding=1, bias=False),
+            Conv2d(cout, cout, 3, padding=1, bias=False),
             BatchNorm2d(cout), nn.ReLU(inplace=True))
 
     def forward(self, x):
@@ -44,7 +44,7 @@ class Up(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.up = nn.ConvTranspose2d(cin, cin // 2, 2, 2)
+        self.up = ConvTranspose2d(cin, cin // 2, 2, 2)
         self.conv = DoubleConv(cin, cout)
 
     def forward(self, x1, x2):
@@ -59,7 +59,7 @@ class Up(nn.Module):
 class _OutConv(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 1)
+        self.conv = Conv2d(cin, cout, 1)
 
     def forward(self, x):
         return self.conv(x)

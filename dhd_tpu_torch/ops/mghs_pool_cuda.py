@@ -235,10 +235,14 @@ def _entry(dtype):
 
 
 def mghs_pool_plan_plain(depth: torch.Tensor, feat: torch.Tensor,
-                         band_mask: torch.Tensor, plan: PoolPlan
+                         band_mask: torch.Tensor, plan: PoolPlan,
+                         acc_dtype: torch.dtype = torch.float32
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same inputs and plan, and an
-    ``index_add_`` over the sorted key.  Arguments as :func:`mghs_pool_cuda`.
+    ``index_add_`` over the sorted key.  Arguments as :func:`mghs_pool_cuda`;
+    ``acc_dtype`` float64 sums the same products exactly (the reference
+    that B1's fp32 sums are held to on the card: the fp32 ``index_add_``
+    rounds as much as the kernel does, in the order its atomics take).
     """
     b, dy, dx, dz = plan.grid
     d, c = depth.shape[-1], feat.shape[-1]
@@ -251,14 +255,14 @@ def mghs_pool_plan_plain(depth: torch.Tensor, feat: torch.Tensor,
         torch.arange(n_pillars, device=dix.device),
         (plan.starts[1:] - plan.starts[:-1]).long(), output_size=n_valid)
     # the product in the working dtype, summed in fp32, as in the kernel
-    v = (depth.reshape(-1)[dix, None] * feat.reshape(-1, c)[pix]).float()
+    v = (depth.reshape(-1)[dix, None] * feat.reshape(-1, c)[pix]).to(
+        acc_dtype)
     e0, e1 = plan.band_edges
     band = (z >= e0).long() + (z >= e1).long()
     gate = (z >= 0) & (band_mask.reshape(-1, 3)[pix, band] > 0)
-    bev = torch.zeros(n_pillars, c, dtype=torch.float32, device=v.device)
+    bev = torch.zeros(n_pillars, c, dtype=acc_dtype, device=v.device)
     bev.index_add_(0, pillar, v)
-    vox = torch.zeros(n_pillars * dz, c, dtype=torch.float32,
-                      device=v.device)
+    vox = torch.zeros(n_pillars * dz, c, dtype=acc_dtype, device=v.device)
     vox.index_add_(0, (pillar * dz + z)[gate], v[gate])
     return (bev.to(feat.dtype).reshape(b, dy, dx, c),
             vox.to(feat.dtype).reshape(b, dy, dx, dz, c))

@@ -33,6 +33,22 @@ def _kernel_key(name: str, collapse: bool) -> str:
     return key.removeprefix("void ") or name[:40]
 
 
+def kernel_launches() -> Dict[str, int]:
+    """The launch counters of the CUDA kernels' wrappers, by name: B1
+    (``mghs_pool_cuda``) and its plan (``pool_plan_cuda``), B2, B3, B4 and
+    B5.  A wrapper counts only where it launches its kernel."""
+    from dhd_tpu_torch.ops import (fused_layer_norm_cuda, mghs_pool_cuda,
+                                   sorted_segment_sum,
+                                   stereo_cost_volume_cuda,
+                                   window_attention_cuda)
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+
+    return {fn.__name__: fn.launches
+            for fn in (mghs_pool_cuda, pool_plan_cuda, sorted_segment_sum,
+                       stereo_cost_volume_cuda, window_attention_cuda,
+                       fused_layer_norm_cuda)}
+
+
 def trace_device(run: Callable[[], None], device: torch.device,
                  collapse: bool = True) -> Dict:
     """Run ``run()`` under ``torch.profiler`` and sum its activity on

@@ -67,22 +67,28 @@ def total_loss(cfg: ModelConfig, out: Dict[str, torch.Tensor],
 def train_step(model: nn.Module, optimizer: AdamWSchedule,
                ema: Optional[ModelEMA], batch: Dict[str, Any],
                generator: Optional[torch.Generator] = None,
-               with_prev: bool = True) -> Dict[str, torch.Tensor]:
+               with_prev: bool = True,
+               compute_dtype: Optional[torch.dtype] = None
+               ) -> Dict[str, torch.Tensor]:
     """One training iteration of ``model`` (put in train mode) on
     ``batch`` (model inputs and ground truth): the forward, the losses,
     the backward, the clipped AdamW step, and the EMA update.
 
-    ``generator`` draws the dropout masks (on the model's device).
-    ``with_prev=False`` is the early-epoch forward of a temporal model
-    (ignored by a single-frame one).  Returns the loss dict and
-    ``grad_norm``, the gradients' global norm before clipping, as 0-dim
-    tensors: nothing is read back to the host.
+    ``generator`` draws the dropout and DropPath masks (on the model's
+    device).  ``with_prev=False`` is the early-epoch forward of a temporal
+    model (ignored by a single-frame one).  ``compute_dtype``
+    ``torch.bfloat16`` is mixed precision, the JAX CLIs' ``--bf16``: the
+    forward in bf16 (``DHDNet.computing_in``) over the fp32 weights, the
+    losses, gradients, AdamW moments, running statistics and EMA in fp32.
+    Returns the loss dict and ``grad_norm``, the gradients' global norm
+    before clipping, as 0-dim tensors: nothing is read back to the host.
     """
     cfg = model.cfg
     model.train()
     optimizer.zero_grad()
     extra = {"with_prev": with_prev} if cfg.temporal else {}
-    out = model(batch, generator=generator, **extra)
+    with model.computing_in(compute_dtype):
+        out = model(batch, generator=generator, **extra)
     loss, metrics = total_loss(cfg, out, batch)
     loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}

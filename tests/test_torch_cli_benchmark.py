@@ -106,14 +106,14 @@ def test_unported_modes_exit_naming_the_roadmap(what):
 
 
 def test_train_prints_ms_per_step_and_finite_losses(capsys):
-    """``--what train``: the whole train step in fp32 whatever ``--bf16``
-    says; ms/step, samples/s and a busy time, all finite, and finite
-    losses; on the CPU the memory is not measured and the times are the
-    host's."""
+    """``--what train``: the whole train step, by default in bf16 mixed
+    precision as the JAX CLI trains; ms/step, samples/s and a busy time,
+    all finite, and finite losses; on the CPU the memory is not measured
+    and the times are the host's."""
     out = _run(capsys, "--preset", "dhd_tiny", "--what", "train",
                "--profile-ops", "3")
     _lines(out, "dhd_tiny train step:", "host busy (one traced step):")
-    assert "fp32, B=1" in out
+    assert "(bf16 mixed precision, B=1" in out
     assert "peak memory: not measured" in out
     losses = dict(kv.split("=") for kv in re.search(
         r"^losses: (.*)$", out, re.M).group(1).split())
@@ -121,6 +121,18 @@ def test_train_prints_ms_per_step_and_finite_losses(capsys):
         set(losses)
     assert all(math.isfinite(float(v)) for v in losses.values())
     assert "device busy" not in out
+
+
+def test_train_fp32_flag_gives_the_fp32_step(capsys, monkeypatch):
+    """``--what train --fp32`` trains with the forward in fp32 (the traced
+    step, which the test above reads, left out)."""
+    import dhd_tpu_torch.profiling as P
+    monkeypatch.setattr(P, "trace_device", lambda run, dev, collapse: {
+        "ops": {}, "op_events": {}, "clock": "host"})
+    out = _run(capsys, "--preset", "dhd_tiny", "--what", "train", "--fp32",
+               "--profile-ops", "1")
+    _lines(out, "dhd_tiny train step:")
+    assert "(fp32, B=1" in out and "bf16" not in out
 
 
 def test_train_pool_plan_is_single_frame_only():

@@ -57,7 +57,7 @@ def test_auto_resume_continues_from_the_newest_checkpoint(tmp_path, capsys):
     assert (tmp_path / "epoch_2.pt").exists()
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--ann-file", "infos.pkl"]])
+@pytest.mark.parametrize("flag", [["--ann-file", "infos.pkl"]])
 def test_unported_flags_exit_naming_the_roadmap(flag):
     with pytest.raises(SystemExit) as e:
         main(ARGS + flag)

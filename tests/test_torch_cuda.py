@@ -67,6 +67,36 @@ def test_mghs_pool_kernel_matches_plain(cuda, dtype):
         assert float(w.abs().sum()) > 0
 
 
+def test_mghs_pool_bf16_gradients_on_the_card(cuda):
+    """B1 under autograd in bf16, as bf16 mixed-precision training runs
+    it: the depth and feat gradients of its autograd Function are the fp32
+    ones on the same values rounded to bf16 (the torch-ops backward sums
+    in fp32), within one bf16 ulp plus 2^-20 of the tensor's peak for the
+    summation order."""
+    args, plan = _pool_inputs(cuda, torch.bfloat16)
+    weights = [None, None]
+    grads = {}
+    before = mghs_pool_cuda.launches
+    for dt in (torch.bfloat16, torch.float32):
+        depth, feat = (a.to(dt, copy=True).requires_grad_(True)
+                       for a in args[:2])
+        out = mghs_pool_cuda(depth, feat, args[2].to(dt), plan)
+        assert all(o.dtype == dt and o.grad_fn is not None for o in out)
+        for i, o in enumerate(out):
+            if weights[i] is None:
+                weights[i] = torch.randn(
+                    o.shape, generator=torch.Generator().manual_seed(i)
+                ).to(cuda, torch.bfloat16)
+        sum((o * w.to(dt)).sum() for o, w in zip(out, weights)).backward()
+        grads[dt] = (depth.grad, feat.grad)
+    assert mghs_pool_cuda.launches == before + 2
+    for g16, g32 in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert g16.dtype == torch.bfloat16 and g32.dtype == torch.float32
+        tol = 2 ** -7 * g32.abs() + 2 ** -20 * float(g32.abs().max())
+        assert bool(((g16.float() - g32).abs() <= tol).all())
+        assert float(g32.abs().max()) > 0
+
+
 def test_mghs_pool_kernel_rejects_bad_inputs(cuda):
     (depth, feat, band_mask), plan = _pool_inputs(cuda, torch.float32)
     before = mghs_pool_cuda.launches
@@ -796,12 +826,13 @@ def test_swin_gradients_on_the_card(cuda):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = SwinTransformer(32, (2, 2), (2, 4), 4, (1,))
+    cpu = SwinTransformer(32, (2, 2), (2, 4), 4, (1,), drop_path_rate=0.0)
     with torch.no_grad():
         for p in cpu.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
                                       .manual_seed(p.numel())))
-    gpu = SwinTransformer(32, (2, 2), (2, 4), 4, (1,)).to(cuda)
+    gpu = SwinTransformer(32, (2, 2), (2, 4), 4, (1,),
+                          drop_path_rate=0.0).to(cuda)
     gpu.load_state_dict(cpu.state_dict())
     x = torch.randn(2, 3, 32, 48, generator=torch.Generator().manual_seed(2))
     r = [torch.randn(o.shape, generator=torch.Generator().manual_seed(3))

@@ -271,7 +271,8 @@ def test_swin_grads_match_jax():
     want = {k[2:]: np.asarray(v) for k, v in C.variables_to_state_dict(
         {"params": j_grads}, rules).items()}
 
-    mod = S.SwinTransformer(16, (2, 2), (2, 4), 4, (1,), True)
+    mod = S.SwinTransformer(16, (2, 2), (2, 4), 4, (1,), True,
+                            drop_path_rate=0.0)
     mod.load_state_dict({k[2:]: torch.from_numpy(np.array(v))
                          for k, v in C.variables_to_state_dict(
                              {"params": params}, rules).items()},

@@ -155,3 +155,35 @@ def test_wrapper_on_cpu_counts_no_launch():
     before = mghs_pool_cuda.launches
     _port_pool("plan", depth, feat, coords, band_mask, vt)
     assert mghs_pool_cuda.launches == before
+
+
+def test_plan_plain_sums_exactly_with_a_float64_accumulator():
+    """``mghs_pool_plan_plain(..., acc_dtype=float64)`` sums the same fp32
+    products as the fp32 version, exactly: it equals the fp32 sums within
+    their rounding and, rounded to fp32, the products summed in float64
+    point by point."""
+    from dhd_tpu_torch.ops import mghs_pool_plan_plain
+
+    _, vt = _vts()
+    depth, feat, coords, band_mask = _inputs(vt, seed=5)
+    plan = build_pool_plan(compute_pool_indices(torch.from_numpy(coords), vt),
+                           vt, depth.shape)
+    args = (torch.from_numpy(np.ascontiguousarray(np.moveaxis(depth, 2, -1))),
+            torch.from_numpy(feat), torch.from_numpy(band_mask), plan)
+    f32 = mghs_pool_plan_plain(*args)
+    f64 = mghs_pool_plan_plain(*args, acc_dtype=torch.float64)
+    ones = mghs_pool_plan_plain(args[0], torch.ones_like(args[1]), *args[2:],
+                                acc_dtype=torch.float64)
+    for a, b, n in zip(f32, f64, ones):
+        assert a.dtype == b.dtype == torch.float32
+        assert float(b.abs().sum()) > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=2e-6 * float(n.max()))
+    # the fullest pillar by hand: its points' fp32 products, summed in
+    # float64
+    d, f = args[0].reshape(-1), args[1].reshape(-1, vt.out_channels)
+    p = int((plan.starts[1:] - plan.starts[:-1]).argmax())
+    dix = plan.dix_s[int(plan.starts[p]):int(plan.starts[p + 1])].long()
+    want = (d[dix, None] * f[dix // vt.D]).double().sum(0).float()
+    assert len(dix) > 1
+    assert torch.equal(f64[0].reshape(-1, vt.out_channels)[p], want)

@@ -10,7 +10,9 @@ mapped into the port's state_dict keys by the converter's rule table
 (its layout transforms are linear, so they carry gradients and moments
 too).
 
-Two steps are compared.
+Two steps are compared.  The JAX config has no DropPath rate, so both
+packages' Swin DropPath is off here (:func:`no_drop_path`); the tests of
+the port's DropPath are in tests/test_torch_train_dhd_l.py.
 
 * **fp64** (:func:`fp64_steps`): both packages' whole step in float64,
   every fp32 cast of either widened to fp64 (:func:`fp64_everywhere`), at
@@ -42,15 +44,17 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from dhd_tpu.config import get_config as j_config
+from dhd_tpu.config import get_config as j_get_config
 from dhd_tpu.models import build_model as j_build_model
+from dhd_tpu.nn import swin as j_swin
 from dhd_tpu.train import (TrainState, create_train_state, ema_init,
                            make_optimizer, make_train_step)
-from dhd_tpu_torch.config import get_config
+from dhd_tpu_torch.config import get_config as t_get_config
 from dhd_tpu_torch.data import synthetic_batch
 from dhd_tpu_torch.io import build_rules, load_jax_variables
 from dhd_tpu_torch.io.convert import variables_to_state_dict
 from dhd_tpu_torch.models import build_model
+from dhd_tpu_torch.nn.swin import DropPath
 from dhd_tpu_torch.train import (AdamWSchedule, ModelEMA, gradient_errors,
                                  train_step, zero_gradient_params)
 
@@ -89,6 +93,43 @@ FP32_BARS = {
 FP64_TOL = 1e-6               # of each tensor's peak; losses' rtol
 FP64_PARAM_ATOL = 1e-5        # params after the full-rate step
 FP64_EMA_ATOL = 1e-6
+
+
+def _config(get_config, preset):
+    """``preset`` of either package's ``get_config``; ``"tiny_dhd_l"`` is
+    tests/test_torch_dhd_l.py's tiny DHD-L-shaped configuration."""
+    if preset == "tiny_dhd_l":
+        from test_torch_dhd_l import tiny_dhd_l
+        return tiny_dhd_l(get_config)
+    return get_config(preset)
+
+
+def j_config(preset):
+    return _config(j_get_config, preset)
+
+
+def get_config(preset):
+    return _config(t_get_config, preset)
+
+
+@contextlib.contextmanager
+def no_drop_path():
+    """Inside, the JAX package's Swin DropPath is the identity (its config
+    has no rate; the Swin's default is 0.1, drawn from flax's rng)."""
+    saved = j_swin.DropPath.__call__
+    j_swin.DropPath.__call__ = lambda self, x, train=False: x
+    try:
+        yield
+    finally:
+        j_swin.DropPath.__call__ = saved
+
+
+def drop_path_off(model):
+    """``model`` with every DropPath of its Swin at rate 0."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    return model
 
 
 def no_dropout(cfg):
@@ -138,34 +179,57 @@ def _after(new, metrics):
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def jax_steps(preset, batch, with_prev_cases=(True,)):
-    """JAX init and one fp32 train step per ``with_prev`` case, each from
-    the initial state.  Returns the initial variables and, per case, the
+def _state(model, cfg, tx, variables):
+    """A JAX TrainState over ``variables`` (as :func:`jax_steps` returns
+    them), as ``create_train_state`` builds it."""
+    return TrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=tx.init(variables["params"]),
+        ema=ema_init(variables["params"], variables["batch_stats"],
+                     cfg.optim.ema_init_updates),
+        tx=tx, apply_fn=model.apply)
+
+
+def jax_steps(preset, batch, with_prev_cases=(True,), dtype=jnp.float32,
+              init=None):
+    """JAX init (unless ``init`` gives the variables) and one train step
+    per ``with_prev`` case of ``build_model(cfg, dtype)``, each from the
+    initial state.  Returns the initial variables and, per case, the
     state after the step and its metrics, as numpy trees."""
     cfg = no_dropout(j_config(preset))
-    model = j_build_model(cfg)
+    model = j_build_model(cfg, dtype=dtype)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tx = make_optimizer(cfg.optim, steps_per_epoch=STEPS_PER_EPOCH)
-    state = create_train_state(model, cfg, jax.random.PRNGKey(0), jb, tx,
-                               jit_init=True)
-    init = _np({"params": state.params, "batch_stats": state.batch_stats})
     after = {}
-    for with_prev in with_prev_cases:
-        step = make_train_step(cfg, donate=False, with_prev=with_prev)
-        after[with_prev] = _after(*step(state, jb, jax.random.PRNGKey(1)))
+    with no_drop_path():
+        if init is None:
+            state = create_train_state(model, cfg, jax.random.PRNGKey(0),
+                                       jb, tx, jit_init=True)
+            init = _np({"params": state.params,
+                        "batch_stats": state.batch_stats})
+        else:
+            state = _state(model, cfg, tx, jax.tree_util.tree_map(
+                jnp.asarray, init))
+        for with_prev in with_prev_cases:
+            step = make_train_step(cfg, donate=False, with_prev=with_prev)
+            after[with_prev] = _after(*step(state, jb,
+                                            jax.random.PRNGKey(1)))
     return init, after
 
 
 def port_step(preset, init, batch, with_prev=True, cfg=None,
-              dtype=torch.float32):
-    """The port's model with the JAX variables and one train step; returns
-    the model, optimiser, EMA and metrics (floats)."""
+              dtype=torch.float32, compute_dtype=None):
+    """The port's model with the JAX variables (DropPath off) and one
+    train step, its forward in ``compute_dtype``; returns the model,
+    optimiser, EMA and metrics (floats)."""
     cfg = cfg or port_cfg(preset)
-    model = build_model(cfg, device="cpu", dtype=dtype)
+    model = drop_path_off(build_model(cfg, device="cpu", dtype=dtype))
     load_jax_variables(model, init, cfg)
     opt = AdamWSchedule(model.parameters(), cfg.optim, STEPS_PER_EPOCH)
     ema = ModelEMA(model, cfg.optim.ema_init_updates, cfg.optim.ema_decay)
-    metrics = train_step(model, opt, ema, batch, with_prev=with_prev)
+    metrics = train_step(model, opt, ema, batch, with_prev=with_prev,
+                         compute_dtype=compute_dtype)
     return model, opt, ema, {k: float(v) for k, v in metrics.items()}
 
 
@@ -199,18 +263,12 @@ def fp64_steps(preset, init, batch, with_prev_cases=(True,)):
     batch = {k: v.astype(np.float64) if v.dtype == np.float32 else v
              for k, v in batch.items()}
     out = {}
-    with jax.enable_x64(True), fp64_everywhere():
+    with jax.enable_x64(True), fp64_everywhere(), no_drop_path():
         wide = jax.tree_util.tree_map(
             lambda x: jnp.asarray(x, jnp.float64), init)
         model = j_build_model(jcfg, dtype=jnp.float64)
         tx = make_optimizer(jcfg.optim, steps_per_epoch=STEPS_PER_EPOCH)
-        state = TrainState(
-            step=jnp.zeros((), jnp.int32), params=wide["params"],
-            batch_stats=wide["batch_stats"],
-            opt_state=tx.init(wide["params"]),
-            ema=ema_init(wide["params"], wide["batch_stats"],
-                         jcfg.optim.ema_init_updates),
-            tx=tx, apply_fn=model.apply)
+        state = _state(model, jcfg, tx, wide)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         for with_prev in with_prev_cases:
             step = make_train_step(jcfg, donate=False, with_prev=with_prev)
@@ -417,8 +475,167 @@ def fp32_readings(preset):
     return out
 
 
+# The first layers of each preset's image backbone, the port's module and
+# the JAX module's path in ``ImageEncoder``, whose bf16 outputs
+# :func:`bf16_layer_readings` compares: convs and dense layers in bf16,
+# BatchNorm and LayerNorm with fp32 statistics, the window attention's
+# fp32 softmax.
+BF16_LAYERS = {
+    "dhd_tiny": (("img_backbone.b0.conv1", "backbone/b0/conv1"),
+                 ("img_backbone.b0.bn1", "backbone/b0/bn1"),
+                 ("img_backbone.b0.conv2", "backbone/b0/conv2"),
+                 ("img_backbone.b0", "backbone/b0"),
+                 ("img_backbone.b1", "backbone/b1")),
+    "tiny_dhd_l": (
+        ("img_backbone.patch_embed.projection", "backbone/patch_embed"),
+        ("img_backbone.patch_embed.norm", "backbone/patch_norm"),
+        ("img_backbone.stages.0.blocks.0.norm1",
+         "backbone/stage0_block0/norm1"),
+        ("img_backbone.stages.0.blocks.0.attn.w_msa.qkv",
+         "backbone/stage0_block0/attn/qkv"),
+        ("img_backbone.stages.0.blocks.0.attn.w_msa",
+         "backbone/stage0_block0/attn"),
+        ("img_backbone.stages.0.blocks.0.ffn.layers.0.0",
+         "backbone/stage0_block0/fc1")),
+}
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _key_images(batch):
+    """The key frame's (B*N, H, W, 3) images of ``batch``."""
+    imgs = np.asarray(batch["imgs"])
+    if imgs.ndim == 6:                              # (B, F, N, H, W, 3)
+        imgs = imgs[:, 0]
+    return imgs.reshape((-1,) + imgs.shape[-3:])
+
+
+def jax_layers(preset, init, batch, dtype):
+    """The outputs of :data:`BF16_LAYERS`' JAX modules in a train-mode
+    forward of the image encoder of ``build_model(cfg, dtype)`` (its
+    ``ImageEncoder``, from ``init``) over the key frame's images, as
+    numpy fp32.  Compiled with XLA's excess precision off, so that every
+    op rounds to its dtype as flax writes the model: on the CPU, XLA
+    otherwise keeps some bf16 results in fp32 between ops (a conv's output
+    into its BatchNorm)."""
+    from dhd_tpu.models.dhd import ImageEncoder
+
+    cfg = no_dropout(j_config(preset))
+    encoder = ImageEncoder(cfg, dtype=dtype)
+    variables = {"params": init["params"]["img_encoder"],
+                 "batch_stats": init["batch_stats"].get("img_encoder", {})}
+    imgs = jnp.asarray(_key_images(batch)).astype(dtype)
+    paths = [path for _, path in BF16_LAYERS[preset]]
+
+    def forward(v, x):
+        return encoder.apply(
+            v, x, train=True, stereo=cfg.stereo,
+            mutable=["batch_stats", "intermediates"],
+            capture_intermediates=lambda mdl, method: (
+                method == "__call__" and "/".join(mdl.path) in paths))
+    with no_drop_path():
+        run = jax.jit(forward).lower(variables, imgs).compile(
+            compiler_options={"xla_allow_excess_precision": False})
+        inter = run(variables, imgs)[1]["intermediates"]
+    out = {}
+    for path in paths:
+        node = inter
+        for key in path.split("/"):
+            node = node[key]
+        out[path] = np.asarray(node["__call__"][0], np.float32)
+    return out
+
+
+def port_layers(preset, init, batch, compute_dtype):
+    """The outputs of :data:`BF16_LAYERS`' port modules in the port's
+    train-mode image encoder (``DHDNet._encode``, from ``init``) over the
+    key frame's images in ``compute_dtype``, channels last, as numpy
+    fp32."""
+    cfg = port_cfg(preset)
+    model = drop_path_off(build_model(cfg, device="cpu"))
+    load_jax_variables(model, init, cfg)
+    model.train()
+    out = {}
+
+    def keep(path, y):
+        out.setdefault(path, y.detach().float().numpy())
+    for name, path in BF16_LAYERS[preset]:
+        model.get_submodule(name).register_forward_hook(
+            lambda mod, args, y, path=path: keep(path, y))
+    imgs = torch.from_numpy(_key_images(batch)).permute(0, 3, 1, 2)
+    with model.computing_in(compute_dtype):
+        model._encode(imgs.to(model.dtype),
+                      generator=torch.Generator().manual_seed(0))
+    return {k: np.moveaxis(v, 1, -1) if v.ndim == 4 else v
+            for k, v in out.items()}
+
+
+def bf16_layer_readings(preset, init, batch=None):
+    """Per layer of :data:`BF16_LAYERS`, the rel-L2 distance from JAX's
+    bf16 output of the port's bf16 output (``port``), of the port's fp32
+    output (``fp32_port``) and of JAX's fp32 output (``control``), the
+    first two also as shares of the control."""
+    batch = train_batch(preset) if batch is None else batch
+    j16 = jax_layers(preset, init, batch, jnp.bfloat16)
+    j32 = jax_layers(preset, init, batch, jnp.float32)
+    p16 = port_layers(preset, init, batch, torch.bfloat16)
+    p32 = port_layers(preset, init, batch, None)
+    out = {}
+    for name, path in BF16_LAYERS[preset]:
+        control = _rel_l2(j32[path], j16[path])
+        port, fp32 = (_rel_l2(p[path], j16[path]) for p in (p16, p32))
+        out[name] = {"port": port, "fp32_port": fp32, "control": control,
+                     "port_share": port / control,
+                     "fp32_port_share": fp32 / control}
+    return out
+
+
+def bf16_readings(preset, batch=None):
+    """One bf16 mixed-precision step (with history frames) of the port and
+    of JAX (``build_model(cfg, dtype=bfloat16)``) from the same fp32
+    weights, and JAX's fp32 step, the control.  Returns the port's
+    model, optimiser, EMA and metrics, and for ``port`` (the port's bf16
+    step against JAX's) and ``control`` (JAX's bf16 step against its
+    fp32 one): the losses' largest relative difference, grad_norm's, and
+    the gradient's rel-L2 (whole, median, worst tensor); and the initial
+    variables."""
+    batch = train_batch(preset) if batch is None else batch
+    init, after32 = jax_steps(preset, batch)
+    _, after16 = jax_steps(preset, batch, dtype=jnp.bfloat16, init=init)
+    a32, a16 = after32[True], after16[True]
+    cfg = port_cfg(preset)
+    port = port_step(preset, init, batch, compute_dtype=torch.bfloat16)
+    model, _, _, metrics = port
+    zero = zero_gradient_params(model)
+
+    def dist(got_metrics, got_grad, want):
+        m = want["metrics"]
+        return {"losses": max(abs(got_metrics[k] - v) / abs(v)
+                              for k, v in m.items() if k != "grad_norm"),
+                "grad_norm": abs(got_metrics["grad_norm"] - m["grad_norm"])
+                / m["grad_norm"],
+                "grad": gradient_errors(got_grad, clipped_gradient(cfg, want),
+                                        zero)}
+    j16 = {k: v for k, v in clipped_gradient(cfg, a16).items()
+           if k in dict(model.named_parameters())}
+    read = {"port": dist(metrics, {k: p.grad.numpy() for k, p in
+                                   model.named_parameters()}, a16),
+            "control": dist(a16["metrics"], j16, a32)}
+    return port, read, init
+
+
 if __name__ == "__main__":
     import sys
+    if sys.argv[2:] == ["bf16"]:
+        _, step_read, variables = bf16_readings(sys.argv[1])
+        print(step_read)
+        for layer, r in bf16_layer_readings(sys.argv[1], variables).items():
+            print(f"{layer}: " + ", ".join(f"{k} {v:.2e}"
+                                           for k, v in r.items()))
+        raise SystemExit(0)
     for case, read in fp32_readings(sys.argv[1]).items():
         print(f"with_prev={case}: " + ", ".join(
             f"{k} {v:.2e}" if isinstance(v, float) else
