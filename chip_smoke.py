@@ -138,6 +138,27 @@ Phases, one line each; any failure raises and exits non-zero:
    of their 26 and 59 calls (bf16 as phases 9 and 10; fp32 B4 within
    1e-5 + 1e-5 |y|, B5 within 1e-5 plus 2^-20 of the terms), each
    shape's first call timed beside its plain version and library call.
+19. evaluation, the port's ``cli/test`` in-process: DHD-S at full width
+   with ``--synthetic`` (B=1, 2 batches), fp32 and ``--bf16``: B1 and its
+   plan kernels once a batch, the confusion matrix counted on the card
+   equal to a float64 numpy count of the grids the CLI predicted, at
+   least 99.9% of voxels with the plain path's class; ms per sample of
+   the eval step and the run's peak memory;
+20. DHD-L's eval forward at full width (Swin-B at 512x1408), bf16, B=1,
+   the history and extra stereo frames, aligned after the view
+   transformation as ``cli/test`` sets it: launches per sample exact (B1,
+   its plan and B3 2, B4 50, B5 113), at least 99.9% agreement with the
+   plain path, ms per sample and peak memory;
+21. RayIoU at 200x200x16: the 14,040-ray fan from the 8 origins
+   ``scene_origins`` derives from a synthetic scene, prediction and GT in
+   one march, on the card and on the CPU: the RayIoU keys within 1e-4, at
+   most 0.01% of rays at another voxel, ms per sample on both; then
+   ``dvr.render`` over a density grid of the scene, card vs CPU, within
+   1e-4 of the peak;
+22. ``cli/test --ann-file --eval ray-iou`` on a 2-sample fixture in
+   nuScenes' format with six 1600x900 JPEG cameras (the data pipeline's
+   PIL resize and crop), both samples once, B1 and its plan once a
+   sample.
 
 Phases 4, 8, 13 and 17 compare fp32 on the GPU with the CPU and turn TF32
 off in cuDNN and matmul for their run; the others run in PyTorch's
@@ -145,8 +166,9 @@ defaults.
 
 Then one JSON line listing the kernels B1-B5 and B1's plan kernels
 (each shape's numbers under
-``shapes``, launches per served path, per CLI run and over the timed
-train steps of phases 16 and 18 under ``launches_by_path``), the
+``shapes``, launches per served path, per CLI run, over the timed
+train steps of phases 16 and 18 and per eval run of phases 19, 20 and 22
+under ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
@@ -217,6 +239,15 @@ SQ_TOLS = (1e-2, 2e-2, 1e-1)    # AdamW's second moment, ~g^2
 UPDATE_LR_TOL = 1e-5        # phase 17: the step's update against AdamW's
 #                             formula on its own moments, in learning rates
 #                             (1.8e-7 on the H100)
+EVAL_TIMED = 5              # eval samples timed a precision, phases 19-20
+RAYIOU_TOL = 1e-4           # phase 21: RayIoU, card against the CPU
+RAY_MOVED_MAX = 1e-4        # phase 21: share of rays that may hit another
+#                             voxel on the card than on the CPU (a direction
+#                             one ulp off can flip the DDA's strict `<`)
+DVR_TOL = 1e-4              # phase 21: dvr.render card vs CPU, of the peak
+#                             of pred_dist and of grad_sigma (the card's
+#                             gradient sums by atomics, in no fixed order),
+#                             on all but RAY_MOVED_MAX of the rays / voxels
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2365,6 +2396,467 @@ def phase_train_small(dev):
               f"GPU {kernel_runs}", flush=True)
 
 
+def eval_launches_per_sample(cfg) -> dict:
+    """The kernels one sample's eval forward launches (the F-frame forward
+    of a temporal preset, plans built in the call): B1 and its plan kernels
+    once per frame through the whole model, B3 as often in a stereo
+    model, and with a Swin backbone B4 once per block and B5 for the patch
+    embedding, two per block, each PatchMerging and each output norm in
+    those frames, plus the extra stereo frame's stage 0."""
+    full = cfg.num_frames - (1 if cfg.stereo else 0)
+    out = {"mghs_pool_cuda": full, "pool_plan_cuda": full}
+    if cfg.stereo:
+        out["stereo_cost_volume_cuda"] = full
+    if cfg.backbone == "swin_base":
+        d = cfg.swin_depths
+        extra = d[0] if cfg.stereo else 0       # the extra frame's blocks
+        out["window_attention_cuda"] = full * sum(d) + extra
+        out["fused_layer_norm_cuda"] = (
+            full * (1 + 2 * sum(d) + len(d) - 1 + len(cfg.swin_out_indices))
+            + (1 + 2 * extra if cfg.stereo else 0))
+    return out
+
+
+def eval_counters():
+    """The wrappers whose launches an eval forward can count, by name."""
+    from dhd_tpu_torch.ops import (fused_layer_norm_cuda, mghs_pool_cuda,
+                                   stereo_cost_volume_cuda,
+                                   window_attention_cuda)
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+    return {fn.__name__: fn for fn in (
+        mghs_pool_cuda, pool_plan_cuda, stereo_cost_volume_cuda,
+        window_attention_cuda, fused_layer_norm_cuda)}
+
+
+@contextlib.contextmanager
+def recording_metric():
+    """Inside, ``MIoUMetric.add_batch`` keeps the metric it counts into and
+    a host copy of every prediction grid it is given."""
+    from dhd_tpu_torch.eval import MIoUMetric
+
+    seen = {"metric": None, "preds": []}
+    add = MIoUMetric.add_batch
+
+    def record(self, pred, gt, mask):
+        seen["metric"] = self
+        seen["preds"].extend(torch.as_tensor(pred).cpu().numpy())
+        return add(self, pred, gt, mask)
+
+    MIoUMetric.add_batch = record
+    try:
+        yield seen
+    finally:
+        MIoUMetric.add_batch = add
+
+
+def run_eval_cli(argv, counted):
+    """``cli/test``'s main in-process with every count set to 0 before it:
+    (return code, printed text, launches, wall s, peak GB, recorded)."""
+    from dhd_tpu_torch.cli.test import main as evaluate
+
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with recording_metric() as seen, contextlib.redirect_stdout(out):
+        rc = evaluate(argv)
+    wall = time.perf_counter() - t0
+    return (rc, out.getvalue(), {fn.__name__: fn.launches for fn in counted},
+            wall, torch.cuda.max_memory_allocated() / 1e9, seen)
+
+
+def eval_ms_per_sample(model, batches, n: int = EVAL_TIMED):
+    """Host wall time of one sample's eval step as ``cli/test`` runs it
+    (forward under inference_mode, argmax and confusion matrix on the
+    device, the 18x18 copy to the host): median of ``n`` after a warm-up,
+    and its spread."""
+    from dhd_tpu_torch.eval import MIoUMetric
+
+    metric = MIoUMetric()
+
+    def step(batch):
+        with torch.inference_mode():
+            occ = model(batch)["occ_logits"].argmax(-1).to(torch.uint8)
+            metric.add_batch(occ, batch["voxel_semantics"],
+                             batch["mask_camera"])
+        return occ
+
+    step(batches[0])
+    ms = []
+    for k in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batches[k % len(batches)])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ms), min(ms), max(ms)
+
+
+def plain_agreement(cfg, dtype, dev, model, batches, preds):
+    """Share of voxels where the plain path (every kernel's plain version,
+    the same weights) predicts the class in ``preds`` (one grid per
+    sample, in batch order)."""
+    from dhd_tpu_torch.models import build_model
+
+    plain = build_model(dataclasses.replace(
+        cfg, pool_method="xla", cv_method="xla", attn_method="xla",
+        ln_method="xla"), dtype=dtype, device=dev)
+    if model is not None:
+        plain.load_state_dict(model.state_dict())
+    same = []
+    with torch.inference_mode():
+        for batch, pred in zip(batches, preds):
+            occ = plain(batch)["occ_logits"].argmax(-1).cpu().numpy()[0]
+            same.append(float((occ == pred).mean()))
+    del plain
+    return float(np.mean(same))
+
+
+def phase_eval(dev, kernels, card, preset="dhd_s"):
+    """``cli/test --synthetic`` at full width (B=1, 2 batches), fp32 and
+    ``--bf16``: B1 and its plan kernels once a batch; the predictions
+    within EVAL_ARGMAX_MIN of the plain path's; the card's confusion
+    matrix equal to a float64 numpy count of the same grids; ms per
+    sample of the eval step and the run's peak memory."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import build_model
+
+    cfg = get_config(preset)
+    want = {k: 2 * v for k, v in eval_launches_per_sample(cfg).items()}
+    counted = [fn for name, fn in eval_counters().items() if name in want]
+    batches = [synthetic_batch(cfg, batch_size=1, seed=i) for i in range(2)]
+    for name, flags, dtype in (("fp32", [], torch.float32),
+                               ("bf16", ["--bf16"], torch.bfloat16)):
+        rc, text, launches, wall, peak_gb, seen = run_eval_cli(
+            ["--preset", preset, "--synthetic", *flags], counted)
+        check(rc == 0 and "evaluated 2 samples" in text
+              and "===> mIoU: " in text, f"cli/test {preset} {name}: {text}")
+        check(launches == want, f"cli/test {preset} {name}: launches "
+              f"{launches}, want {want} in 2 batches")
+        for fn in counted:
+            kernels[fn.__name__]["launches_by_path"][
+                f"eval_{preset}_{name}"] = fn.launches
+        preds = seen["preds"]
+        cm = np.zeros((cfg.num_classes,) * 2, np.float64)
+        for pred, b in zip(preds, batches):
+            m = b["mask_camera"][0] != 0
+            np.add.at(cm, (b["voxel_semantics"][0][m].astype(np.int64),
+                           pred[m].astype(np.int64)), 1.0)
+        check(len(preds) == 2 and np.array_equal(seen["metric"].cm, cm),
+              f"cli/test {preset} {name}: the card's confusion matrix "
+              f"differs from numpy's float64 count")
+        model = build_model(cfg, dtype=dtype, device=dev)
+        ms, lo, hi = eval_ms_per_sample(model, batches)
+        agree = plain_agreement(cfg, dtype, dev, model, batches, preds)
+        check(agree >= SERVE_ARGMAX_MIN,
+              f"cli/test {preset} {name}: {agree:.6f} of voxels agree with "
+              f"the plain path (min {SERVE_ARGMAX_MIN})")
+        print(f"phase 19 ok: cli/test --preset {preset} --synthetic "
+              f"{' '.join(flags)} (B=1, 2 batches, {cfg.vt.input_size}) in "
+              f"{wall:.1f} s: launches {launches}; confusion matrix (int64 "
+              f"bincount on the card) equal to numpy's float64 count of "
+              f"{int(cm.sum())} voxels; {agree:.6f} of voxels with the plain "
+              f"path's class (min {SERVE_ARGMAX_MIN}); eval step "
+              f"{ms:.2f} ms/sample median of {EVAL_TIMED} ({lo:.2f}-"
+              f"{hi:.2f}); peak memory {peak_gb:.2f} GB; on {card}"
+              + "".join(f"\n    {ln}" for ln in text.splitlines()[-2:]),
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_eval_dhd_l(dev, kernels, card, preset="dhd_l"):
+    """DHD-L's eval forward at full width (Swin-B at 512x1408), bf16, B=1:
+    the history and extra stereo frames and the alignment after the view
+    transformation on, as ``cli/test`` sets it for temporal presets; each
+    kernel's launches per sample exact; the predictions within
+    EVAL_ARGMAX_MIN of the plain path's; ms per sample, peak memory."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(preset),
+                              align_after_view_transformation=True)
+    bf16 = torch.bfloat16
+    per = eval_launches_per_sample(cfg)
+    counted = [fn for name, fn in eval_counters().items() if name in per]
+    model = build_model(cfg, dtype=bf16, device=dev)
+    batches = [synthetic_batch(cfg, batch_size=1, seed=i) for i in range(2)]
+    n = EVAL_TIMED
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, lo, hi = eval_ms_per_sample(model, batches, n)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = {k: (n + 1) * v for k, v in per.items()}
+    check(launches == want, f"{preset} eval: launches {launches} in "
+          f"{n + 1} samples, want {per} a sample")
+    for fn in counted:
+        kernels[fn.__name__]["launches_by_path"][f"eval_{preset}_bf16"] = \
+            fn.launches
+    with torch.inference_mode():
+        preds = [model(b)["occ_logits"].argmax(-1).cpu().numpy()[0]
+                 for b in batches]
+    agree = plain_agreement(cfg, bf16, dev, model, batches, preds)
+    check(agree >= SERVE_ARGMAX_MIN,
+          f"{preset} eval: {agree:.6f} of voxels agree with the plain path "
+          f"(min {SERVE_ARGMAX_MIN})")
+    print(f"phase 20 ok: {preset} eval forward, bf16, B=1, "
+          f"{cfg.vt.input_size}, {cfg.num_frames} frames (history and extra "
+          f"stereo frame), aligned after the view transformation: launches "
+          f"a sample { {k: v // (n + 1) for k, v in launches.items()} }; "
+          f"{agree:.6f} of voxels with the plain path's class (min "
+          f"{SERVE_ARGMAX_MIN}); eval step {ms:.2f} ms/sample median of {n} "
+          f"({lo:.2f}-{hi:.2f}); peak memory {peak_gb:.2f} GB; on {card}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def scene_infos(n: int = 12):
+    """One synthetic nuScenes scene: the ego drives 4 m a sample along a
+    gentle curve, nuScenes' lidar mount (0.94 m ahead, 1.84 m up)."""
+    infos = []
+    for i in range(n):
+        yaw = 0.02 * i
+        infos.append({
+            "token": f"tok{i}", "scene_token": "scene0",
+            "ego2global_rotation": [math.cos(yaw / 2), 0.0, 0.0,
+                                    math.sin(yaw / 2)],
+            "ego2global_translation": [411.3 + 4.0 * i, 1180.6 + 0.4 * i * i
+                                       / 10, 0.0],
+            "lidar2ego_rotation": [0.7071, 0.0, 0.0, 0.7071],
+            "lidar2ego_translation": [0.94, 0.0, 1.84]})
+    return infos
+
+
+def occupancy_scene(seed: int = 0, shape=(200, 200, 16)):
+    """A (200, 200, 16) class grid like Occ3D's: drivable ground and
+    sidewalk slabs, buildings and vegetation at the edges, cars and other
+    objects on the road, free above; and a prediction of it with 5% of
+    the occupied voxels of another class and 2% of the free ones filled."""
+    rng = np.random.default_rng(seed)
+    free = 17
+    gt = np.full(shape, free, np.uint8)
+    gt[:, :, :2] = 11
+    gt[:, 130:, :3] = 13
+    gt[:, 170:, :12] = 15
+    gt[:25, :, :9] = 16
+    for _ in range(60):
+        x, y = rng.integers(20, 180, 2)
+        w, l, h = rng.integers(2, 6), rng.integers(4, 12), rng.integers(3, 6)
+        gt[x:x + w, y:y + l, 2:2 + h] = rng.integers(1, 11)
+    pred = gt.copy()
+    occ = gt != free
+    flip = occ & (rng.random(shape) < 0.05)
+    pred[flip] = rng.integers(0, 17, int(flip.sum()))
+    fill = ~occ & (rng.random(shape) < 0.02)
+    pred[fill] = rng.integers(0, 17, int(fill.sum()))
+    return pred, gt
+
+
+def phase_rayiou(dev, card, shape=(200, 200, 16)):
+    """RayIoU at Occ3D's 200x200x16: the 14,040-ray fan from the origins
+    ``scene_origins`` derives from a synthetic scene (8, the most it
+    takes), prediction and GT marched in one call; the card against the
+    CPU (the RayIoU keys within RAYIOU_TOL, at most RAY_MOVED_MAX of the
+    rays at another voxel), ms per sample on both; then ``dvr.render``
+    over a density grid of the same scene, card against CPU."""
+    from dhd_tpu_torch.eval.rayiou import (PC_RANGE, VOXEL_SIZE, FREE_ID,
+                                           generate_lidar_rays, march,
+                                           ray_endpoints,
+                                           rayiou_from_outputs,
+                                           scene_origins)
+    from dhd_tpu_torch.ops.dvr import render
+
+    infos = scene_infos()
+    origins = scene_origins(infos, 6)
+    check(len(origins) >= 8, f"{len(origins)} origins")
+    pred, gt = occupancy_scene(0, shape)
+    args = ([pred], [gt], [origins])
+    res, ms = {}, {}
+    rayiou_from_outputs(*args, device=dev)                # warm-up
+    cpu = torch.device("cpu")
+    sides = (("card", dev), ("cpu", cpu))
+    for (side, where), n in zip(sides, (3, 1)):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            res[side] = rayiou_from_outputs(*args, device=where)
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[side] = statistics.median(times)
+    diff = max(abs(res["card"][k] - res["cpu"][k])
+               for k in ("RayIoU", "RayIoU@1", "RayIoU@2", "RayIoU@4"))
+    rays = generate_lidar_rays()
+    o_vox, ends = ray_endpoints(rays, origins, PC_RANGE, VOXEL_SIZE)
+    hits, march_ms = {}, {}
+    for side, where in sides:
+        occ = torch.as_tensor(np.stack([pred, gt]) != FREE_ID, device=where)
+        r = len(ends)
+        inputs = (occ.reshape(-1), shape,
+                  torch.from_numpy(np.tile(o_vox, (2, 1))).to(where),
+                  torch.from_numpy(np.tile(ends, (2, 1))).to(where),
+                  torch.arange(2, device=where).repeat_interleave(r)
+                  * int(np.prod(shape)))
+        if side == "card":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits[side] = [t.cpu().numpy() for t in march(*inputs)]
+        march_ms[side] = 1e3 * (time.perf_counter() - t0)
+    moved = ~(hits["card"][1] == hits["cpu"][1]).all(axis=1)
+    same_d = np.abs(hits["card"][0] - hits["cpu"][0])[~moved]
+    print(f"phase 21: RayIoU card {res['card']['RayIoU']:.6f} / @1 "
+          f"{res['card']['RayIoU@1']:.6f} / @2 {res['card']['RayIoU@2']:.6f}"
+          f" / @4 {res['card']['RayIoU@4']:.6f}, CPU "
+          f"{res['cpu']['RayIoU']:.6f}: largest difference {diff:.3e} (tol "
+          f"{RAYIOU_TOL}); {len(origins)} origins x {len(rays)} rays x 2 "
+          f"grids = {2 * len(ends)} rays in one march: {int(moved.sum())} "
+          f"({moved.mean():.2e}) at another voxel than on the CPU (max "
+          f"{RAY_MOVED_MAX}), the others' distances within "
+          f"{same_d.max():.3e} voxels; {ms['card']:.2f} ms/sample on the "
+          f"card (median of 3), {ms['cpu']:.2f} on the CPU, the march "
+          f"alone {march_ms['card']:.2f} and {march_ms['cpu']:.2f} ms (the "
+          f"rest: the host's fan, endpoints and per-class counts); on "
+          f"{card}",
+          flush=True)
+    check(diff <= RAYIOU_TOL and moved.mean() <= RAY_MOVED_MAX,
+          f"RayIoU card vs CPU: {diff:.3e}, {moved.mean():.2e} rays moved")
+
+    # the density render over the same scene: sigma (1, 1, Z, Y, X), the
+    # fan from the first origin to 30 m, l1 loss against its own length
+    occ = (gt != FREE_ID).transpose(2, 1, 0)
+    sigma = np.where(occ, 2.0, 0.02).astype(np.float32)[None, None]
+    o = o_vox[0][None, None]
+    pts = ((rays * 30.0 + origins[0] - np.asarray(PC_RANGE[:3], np.float32))
+           / VOXEL_SIZE).astype(np.float32)[None]
+    tindex = np.zeros(pts.shape[:2], np.float32)
+    out, dvr_ms = {}, {}
+    for side, where in sides:
+        case = [torch.from_numpy(a).to(where) for a in (sigma, o, pts,
+                                                        tindex)]
+        if side == "card":
+            render(*case)                                  # warm-up
+        t0 = time.perf_counter()
+        got = [t.cpu().numpy() for t in render(*case)]
+        dvr_ms[side] = 1e3 * (time.perf_counter() - t0)
+        out[side] = got
+    errs = []
+    for k in (0, 2):                     # pred_dist, grad_sigma
+        a, b = out["card"][k].ravel(), out["cpu"][k].ravel()
+        e = np.abs(a - b) / max(1e-6, float(np.abs(b).max()))
+        errs.append((float(e.max()), float((e > DVR_TOL).mean())))
+    valid = float((out["cpu"][0] >= 0).mean())
+    print(f"phase 21 dvr.render: {pts.shape[1]} rays through sigma "
+          f"{sigma.shape}, l1, card vs CPU: pred_dist largest diff "
+          f"{errs[0][0]:.3e} of its peak ({errs[0][1]:.2e} of rays past "
+          f"{DVR_TOL}), grad_sigma {errs[1][0]:.3e} ({errs[1][1]:.2e} of "
+          f"voxels past it); {valid:.4f} of rays valid; {dvr_ms['card']:.2f}"
+          f" ms on the card, {dvr_ms['cpu']:.2f} on the CPU; on {card}",
+          flush=True)
+    check(valid > 0.5 and all(share <= RAY_MOVED_MAX for _, share in errs),
+          f"dvr.render card vs CPU: {errs}, valid {valid}")
+
+
+def write_nuscenes_fixture(root, n_samples: int = 2,
+                           img_wh=(1600, 900), grid=(200, 200, 16)):
+    """An on-disk nuScenes-format fixture of ``n_samples`` samples in one
+    scene: six JPEG cameras at nuScenes' 1600x900 with nuScenes-like
+    intrinsics, a 34,720-point lidar sweep, Occ3D ``labels.npz`` and the
+    infos pkl; returns the pkl's path."""
+    import os
+    import pickle
+
+    from PIL import Image
+
+    from dhd_tpu_torch.data.nuscenes import CAM_NAMES
+
+    rng = np.random.default_rng(0)
+    infos = []
+    for i in range(n_samples):
+        cams = {}
+        for ci, cam in enumerate(CAM_NAMES):
+            path = os.path.join(root, f"{i}_{cam}.jpg")
+            Image.fromarray(rng.integers(
+                0, 256, (img_wh[1], img_wh[0], 3), dtype=np.uint8)).save(
+                path, quality=90)
+            yaw = 2 * math.pi * ci / len(CAM_NAMES)
+            cams[cam] = {
+                "data_path": path,
+                "cam_intrinsic": np.array([[1266.4, 0, 816.3],
+                                           [0, 1266.4, 491.5], [0, 0, 1]]),
+                "sensor2ego_rotation": [math.cos(yaw / 2 - math.pi / 4),
+                                        0, 0, math.sin(yaw / 2
+                                                       - math.pi / 4)],
+                "sensor2ego_translation": [1.7, 0.0, 1.5],
+                "ego2global_rotation": [1.0, 0, 0, 0],
+                "ego2global_translation": [600.0 + 4.0 * i, 1600.0, 0.0]}
+        lidar = os.path.join(root, f"lidar_{i}.bin")
+        rng.uniform(-50, 50, (34720, 5)).astype(np.float32).tofile(lidar)
+        occ_dir = os.path.join(root, "gts", str(i))
+        os.makedirs(occ_dir, exist_ok=True)
+        pred, gt = occupancy_scene(i, grid)
+        np.savez(os.path.join(occ_dir, "labels.npz"), semantics=gt,
+                 mask_lidar=(rng.random(grid) < 0.5).astype(np.uint8),
+                 mask_camera=(rng.random(grid) < 0.7).astype(np.uint8))
+        infos.append({
+            "token": f"tok{i}", "timestamp": 1_000_000 * i,
+            "scene_token": "scene0", "lidar_path": lidar,
+            "lidar2ego_rotation": [0.7071, 0, 0, 0.7071],
+            "lidar2ego_translation": [0.94, 0.0, 1.84],
+            "ego2global_rotation": [1.0, 0, 0, 0],
+            "ego2global_translation": [600.0 + 4.0 * i, 1600.0, 0.0],
+            "occ_path": occ_dir, "cams": cams})
+    pkl = os.path.join(root, "infos.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"infos": infos, "metadata": {"version": "smoke"}}, f)
+    return pkl
+
+
+def phase_eval_ann_file(dev, kernels, card, preset="dhd_s",
+                        img_wh=(1600, 900), grid=(200, 200, 16)):
+    """``cli/test --ann-file --eval ray-iou`` on a 2-sample fixture of
+    nuScenes' format and image size (PIL decodes, resizes and crops each
+    1600x900 JPEG to 256x704): both samples evaluated in order, B1 and its
+    plan kernels once a sample, RayIoU and mIoU printed; ms per sample of
+    the whole run (data pipeline included)."""
+    import tempfile
+
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    want = {k: 2 * v for k, v in eval_launches_per_sample(
+        get_config(preset)).items()}
+    counted = [fn for name, fn in eval_counters().items() if name in want]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        t0 = time.perf_counter()
+        pkl = write_nuscenes_fixture(root, 2, img_wh, grid)
+        write_s = time.perf_counter() - t0
+        rc, text, launches, wall, peak_gb, seen = run_eval_cli(
+            ["--preset", preset, "--ann-file", pkl, "--eval", "ray-iou"],
+            counted)
+    check(rc == 0 and "evaluated 2 samples" in text
+          and "rayiou-samples: tok0 tok1" in text and "RayIoU@4: " in text
+          and "===> mIoU: " in text, f"cli/test --ann-file: {text}")
+    check(launches == want and len(seen["preds"]) == 2,
+          f"cli/test --ann-file: launches {launches}, want {want}")
+    for fn in counted:
+        kernels[fn.__name__]["launches_by_path"][f"eval_ann_file_{preset}"] \
+            = fn.launches
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("RayIoU", "===> mIoU"))]
+    print(f"phase 22 ok: cli/test --preset {preset} --ann-file (2 samples, "
+          f"6 JPEG cameras at {img_wh[0]}x{img_wh[1]}, written in "
+          f"{write_s:.1f} s) --eval ray-iou in {wall:.1f} s, "
+          f"{1e3 * wall / 2:.0f} ms/sample with the model's build, the "
+          f"data pipeline and the RayIoU march; launches {launches}; peak "
+          f"memory {peak_gb:.2f} GB; {'; '.join(lines)}; on {card}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2416,6 +2908,10 @@ def main() -> int:
     with full_fp32():
         phase_train_small(dev)
     phase_train_dhd_l(dev, kernels, card)
+    phase_eval(dev, kernels, card)
+    phase_eval_dhd_l(dev, kernels, card)
+    phase_rayiou(dev, card)
+    phase_eval_ann_file(dev, kernels, card)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -15,11 +15,14 @@ in the JAX CLI.  With ``--work-dir`` each logged step appends a line to
 holds the model, optimiser, EMA, step and dropout generator
 (``dhd_tpu_torch.io.save_checkpoint``); ``--resume-from`` and
 ``--auto-resume`` continue from one, ``--load-from`` warm-starts the
-model from a reference-keyed ``.pth`` state_dict.  ``--bf16`` is mixed
+model's weights from a reference-keyed ``.pth`` state_dict or from such
+a checkpoint (``io.load_weights``).  ``--bf16`` is mixed
 precision as in the JAX CLI: the forward in bf16 over fp32 master weights,
 the losses, gradients, AdamW moments and EMA in fp32 (checkpoints are
-fp32 either way).  The nuScenes loader (``--ann-file``) and multi-device
-runs are not ported yet: they exit 1 naming ROADMAP.md.
+fp32 either way).  ``--ann-file`` trains on a bevdetv2 infos pkl through
+the port's dataset, augmenting pipeline and prefetching loader (one epoch
+is ``len(loader)`` steps).  Multi-device runs are not ported yet: they
+exit 1 naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -34,16 +37,13 @@ import torch
 # the reference's per-GPU batch (dhd_tpu/cli/train.py:73)
 PER_GPU_BATCH = {"dhd_s": 4, "dhd_m": 3, "dhd_l": 2}
 N_SYNTHETIC_BATCHES = 4
-NOT_PORTED = {
-    "ann_file": "--ann-file (the nuScenes loader, ROADMAP.md §A.6)",
-}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Train DHD with the port")
     p.add_argument("--preset", default="dhd_s")
-    p.add_argument("--ann-file", default=None,
-                   help="bevdetv2 infos pkl (not ported yet)")
+    p.add_argument("--ann-file", default=None, help="bevdetv2 infos pkl")
+    p.add_argument("--data-root", default="")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--batch-size", type=int, default=None,
                    help="default: the reference per-GPU batch")
@@ -65,8 +65,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="train without history frames until this epoch "
                         "(SequentialControlHook); default: always use them")
     p.add_argument("--load-from", default=None,
-                   help="warm-start .pth state_dict in the reference key "
-                        "space")
+                   help="warm-start weights: a .pth state_dict in the "
+                        "reference key space, or a .pt checkpoint")
     p.add_argument("--device", default=None,
                    help="default: the GPU (raises without one)")
     return p.parse_args(argv)
@@ -84,18 +84,8 @@ def _newest_checkpoint(work_dir: Optional[str]) -> Tuple[Optional[str], int]:
     return os.path.join(work_dir, f"epoch_{max(epochs)}.pt"), max(epochs)
 
 
-def _reference_state_dict(path: str):
-    """A reference ``.pth``: the state_dict itself, or mmcv's checkpoint
-    dict holding it under ``state_dict``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt.get("state_dict", ckpt)
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    for flag, msg in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"{msg} is not ported yet")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise SystemExit("multi-device training (ROADMAP.md §A.9) is not "
                          "ported yet")
@@ -103,7 +93,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dhd_tpu_torch.config import get_config
     from dhd_tpu_torch.data import synthetic_batch
     from dhd_tpu_torch.device import resolve_device
-    from dhd_tpu_torch.io import load_checkpoint, save_checkpoint
+    from dhd_tpu_torch.io import (load_checkpoint, load_weights,
+                                  save_checkpoint)
     from dhd_tpu_torch.models import build_model
     from dhd_tpu_torch.profiling import kernel_launches
     from dhd_tpu_torch.train import AdamWSchedule, ModelEMA, train_step
@@ -112,19 +103,37 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = get_config(args.preset)
     batch_size = args.batch_size or PER_GPU_BATCH.get(cfg.name, 1)
     epochs = args.epochs or cfg.optim.max_epochs
-    steps_per_epoch = N_SYNTHETIC_BATCHES
+    if args.synthetic or args.ann_file is None:
+        steps_per_epoch = N_SYNTHETIC_BATCHES
 
-    def epoch_batches():
-        for i in range(0, N_SYNTHETIC_BATCHES * batch_size, batch_size):
-            yield synthetic_batch(cfg, batch_size=batch_size,
-                                  seed=args.seed + i)
+        def epoch_batches():
+            for i in range(0, N_SYNTHETIC_BATCHES * batch_size, batch_size):
+                yield synthetic_batch(cfg, batch_size=batch_size,
+                                      seed=args.seed + i)
+    else:
+        from dhd_tpu_torch.data.loader import PrefetchLoader
+        from dhd_tpu_torch.data.nuscenes import NuScenesOccDataset
+        from dhd_tpu_torch.data.pipeline import SamplePipeline
+        ds = NuScenesOccDataset(args.ann_file, args.data_root,
+                                num_adj_frames=cfg.num_adj_frames,
+                                stereo=cfg.stereo)
+        pipe = SamplePipeline(cfg, is_train=True, data_root=args.data_root,
+                              seed=args.seed)
+        loader = PrefetchLoader(ds, pipe, batch_size, shuffle=True,
+                                num_workers=8, prefetch=3, seed=args.seed)
+        steps_per_epoch = len(loader)
+        if steps_per_epoch == 0:
+            raise SystemExit(f"{args.ann_file} holds {len(ds)} samples, "
+                             f"fewer than one batch of {batch_size}")
+
+        def epoch_batches():
+            yield from loader
 
     compute_dtype = torch.bfloat16 if args.bf16 else None
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.load_from:
-        model.load_state_dict(_reference_state_dict(args.load_from),
-                              strict=True)
+        load_weights(model, args.load_from)
     optimizer = AdamWSchedule(model.parameters(), cfg.optim,
                               steps_per_epoch)
     ema = ModelEMA(model, cfg.optim.ema_init_updates, cfg.optim.ema_decay)

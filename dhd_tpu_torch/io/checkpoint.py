@@ -6,8 +6,10 @@ A checkpoint holds the model's state_dict in the reference key space (what
 ``load_jax_variables`` fills, so a model-only load takes it too), the
 optimiser's moments and schedule position, the EMA and its counter, the
 step, and the dropout generator's state.  Loaded into the same objects it
-gives the next step's numbers bit for bit.  The JAX package's orbax
-checkpoints cannot be read without JAX and are not read.
+gives the next step's numbers bit for bit.  :func:`load_weights` loads the
+weights alone, from such a checkpoint (its EMA's if asked) or from a
+reference ``.pth``.  The JAX package's orbax checkpoints cannot be read
+without JAX and are not read.
 """
 from __future__ import annotations
 
@@ -60,3 +62,25 @@ def load_checkpoint(path: Union[PathLike, BinaryIO], model: nn.Module,
     if generator is not None and "generator" in state:
         generator.set_state(state["generator"])
     return int(state["step"])
+
+
+def load_weights(model: nn.Module, path: PathLike,
+                 use_ema: bool = False) -> None:
+    """Strict-load weights into ``model`` from ``path``: a reference
+    ``.pth`` (the state_dict in the reference key space, or mmcv's dict
+    holding it under ``state_dict``) or a checkpoint of
+    :func:`save_checkpoint`, whose EMA weights and statistics replace the
+    live ones with ``use_ema`` where it stores an EMA.  A directory (a JAX
+    orbax checkpoint) exits 1."""
+    if os.path.isdir(path):
+        raise SystemExit(f"{path} is a directory, a JAX orbax checkpoint: "
+                         f"the port reads .pth and .pt files only (orbax "
+                         f"needs JAX; ROADMAP.md, not ported)")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in ckpt and "step" in ckpt:
+        state = dict(ckpt["model"])
+        if use_ema and ckpt.get("ema"):
+            state.update(ckpt["ema"]["shadow"])
+    else:
+        state = ckpt.get("state_dict", ckpt)
+    model.load_state_dict(state, strict=True)

@@ -340,7 +340,12 @@ class DHDNet(nn.Module):
             self.add_module(f"img_voxel_encoder{k}",
                             UNet(slab * c_bev, cfg.voxel_encoder_out[k],
                                  base=cfg.unet_base))
-        self.mix = SFA(cfg.sfa_in_channels, cfg.sfa_out_channels)
+        # the fused width that reaches SFA, as flax infers it: the config's
+        # sfa_in_channels is unused by the JAX package and disagrees with it
+        # in dhd_tiny_stereo (192 against 128)
+        c_2d = (cfg.bev_neck_out_channels if cfg.bev_encoder == "custom_resnet"
+                else cfg.bev_unet_out)
+        self.mix = SFA(c_2d + sum(cfg.voxel_encoder_out), cfg.sfa_out_channels)
         self.occ_head = OccHead(cfg.head_in_dim, cfg.head_out_dim,
                                 cfg.head_Dz, cfg.num_classes,
                                 cfg.use_predicter, return_flat=True)

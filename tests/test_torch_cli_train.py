@@ -1,6 +1,6 @@
 """The port's training CLI (dhd_tpu_torch.cli.train) in-process on the
 CPU: two synthetic steps write metrics.jsonl and a checkpoint, a resume
-continues from it, the unported flags exit 1 naming ROADMAP.md, and
+continues from it, an orbax directory exits 1 naming ROADMAP.md, and
 without ``--device`` and without a GPU it raises."""
 import json
 
@@ -15,6 +15,17 @@ from dhd_tpu_torch.train import AdamWSchedule, ModelEMA
 
 ARGS = ["--preset", "dhd_tiny", "--synthetic", "--device", "cpu",
         "--log-interval", "1"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: under the test lane's parallel
+    workers, thousands of small ops (the DDA loops) otherwise stall on the
+    other workers' OpenMP threads (~40x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_two_steps_write_metrics_and_a_checkpoint(tmp_path, capsys):
@@ -57,10 +68,12 @@ def test_auto_resume_continues_from_the_newest_checkpoint(tmp_path, capsys):
     assert (tmp_path / "epoch_2.pt").exists()
 
 
-@pytest.mark.parametrize("flag", [["--ann-file", "infos.pkl"]])
-def test_unported_flags_exit_naming_the_roadmap(flag):
+@pytest.mark.parametrize("flag", [["--load-from", "orbax_dir"]])
+def test_unported_flags_exit_naming_the_roadmap(flag, tmp_path):
+    """A JAX orbax directory (``--ann-file`` is ported now)."""
+    (tmp_path / flag[1]).mkdir()
     with pytest.raises(SystemExit) as e:
-        main(ARGS + flag)
+        main(ARGS + [flag[0], str(tmp_path / flag[1])])
     assert "ROADMAP.md" in str(e.value.code)
 
 

@@ -890,3 +890,49 @@ def test_view_transformer_gradients_on_the_card(cuda):
     for n, g in g_cpu.items():
         peak = max(1e-3, float(g.abs().max()))
         assert float((g_gpu[n] - g).abs().max()) / peak < 2e-4, n
+
+
+def test_confusion_matrix_on_the_card_equals_the_cpu(cuda):
+    from dhd_tpu_torch.eval import confusion_matrix
+    rng = np.random.default_rng(11)
+    pred, gt = rng.integers(0, 18, (2, 2, 40, 40, 16), dtype=np.uint8)
+    mask = rng.integers(0, 2, (2, 40, 40, 16), dtype=np.uint8)
+    got = confusion_matrix(torch.from_numpy(pred).to(cuda), gt, mask)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), confusion_matrix(torch.from_numpy(pred),
+                                                   gt, mask))
+
+
+def test_ray_march_and_render_on_the_card_follow_the_cpu(cuda):
+    """The DDA first hit of the lidar fan: at most 0.01% of rays at another
+    voxel (a direction one ulp off can flip the strict `<`); the density
+    render within 1e-4 of the CPU's peak (the card's gradient sums by
+    atomics)."""
+    from dhd_tpu_torch.eval.rayiou import generate_lidar_rays, ray_march
+    from dhd_tpu_torch.ops.dvr import render
+    rng = np.random.default_rng(12)
+    occ = torch.from_numpy((rng.random((64, 64, 16)) < 0.02)
+                           .astype(np.float32))
+    origin = torch.tensor([31.7, 30.2, 4.5])
+    ends = torch.from_numpy(generate_lidar_rays() * 10) + origin
+    d_c, c_c = ray_march(occ.to(cuda), origin, ends)
+    d, c = ray_march(occ, origin, ends)
+    moved = ~(c_c.cpu() == c).all(dim=1)
+    assert moved.float().mean() <= 1e-4
+    assert (d_c.cpu() - d)[~moved].abs().max() <= 1e-3
+    sigma = torch.where(occ.permute(2, 1, 0) > 0, 2.0, 0.02)[None, None]
+    case = (sigma, origin[None, None], ends[None], torch.zeros(1, len(ends)))
+    want = render(*case)
+    got = render(*(t.to(cuda) for t in case))
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def test_eval_cli_on_the_card_launches_b1(cuda, capsys):
+    from dhd_tpu_torch.cli.test import main
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+    before = (mghs_pool_cuda.launches, pool_plan_cuda.launches)
+    assert main(["--preset", "dhd_tiny", "--synthetic"]) == 0
+    assert "evaluated 2 samples" in capsys.readouterr().out
+    assert (mghs_pool_cuda.launches, pool_plan_cuda.launches) == (
+        before[0] + 2, before[1] + 2)

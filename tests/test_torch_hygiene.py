@@ -23,7 +23,10 @@ def test_port_sources_found():
     assert all(p.exists() for p in SOURCES)
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"dhd_tpu_torch/cli/benchmark.py", "dhd_tpu_torch/profiling.py",
-            "dhd_tpu_torch/ops/segment_sum.py"} <= names
+            "dhd_tpu_torch/ops/segment_sum.py", "dhd_tpu_torch/cli/test.py",
+            "dhd_tpu_torch/eval/rayiou.py", "dhd_tpu_torch/ops/dvr.py",
+            "dhd_tpu_torch/data/pipeline.py",
+            "dhd_tpu_torch/native/__init__.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -61,8 +61,9 @@ def _stream_frames(batch):
 @pytest.fixture(scope="module")
 def micro():
     """dhd_micro_stereo: one jitted JAX init, two streaming steps and the
-    F-frame forward with and without the history frames; the port with the
-    converted variables."""
+    F-frame forward with and without the history frames, and with the
+    alignment after the view transformation that evaluation turns on for
+    temporal presets; the port with the converted variables."""
     cfg_j = j_config("dhd_micro_stereo")
     batch = j_batch(cfg_j, batch_size=1, seed=1, with_gt=False)
     jmodel = j_build_model(cfg_j)
@@ -82,6 +83,10 @@ def micro():
             "frames": frames(variables, jb, True),
             "frames_no_prev": frames(variables, jb, False),
             "cache1": cache1, "cache2": cache2}
+    jaavt = j_build_model(dataclasses.replace(
+        cfg_j, align_after_view_transformation=True))
+    want["frames_aavt"] = jax.jit(
+        lambda v, b: jaavt.apply(v, b, train=False))(variables, jb)
     cfg = t_config("dhd_micro_stereo")
     model = build_model(cfg, device="cpu")
     load_jax_variables(model, _np(variables), cfg)
@@ -93,20 +98,24 @@ def port_runs(micro):
     cfg, batch, (s1, s2), model, _ = micro
     out1, cache1 = model(s1, cache={})
     out2, cache2 = model(s2, cache=cache1)
+    aavt = build_model(dataclasses.replace(
+        cfg, align_after_view_transformation=True), device="cpu")
+    aavt.load_state_dict(model.state_dict())
     return {"stream1": out1, "stream2": out2,
             "frames": model(batch), "frames_no_prev": model(
-                batch, with_prev=False),
+                batch, with_prev=False), "frames_aavt": aavt(batch),
             "cache1": cache1, "cache2": cache2}
 
 
 @pytest.mark.parametrize("run", ["stream1", "stream2", "frames",
-                                 "frames_no_prev"])
+                                 "frames_no_prev", "frames_aavt"])
 @pytest.mark.parametrize("key", OUT_KEYS)
 def test_dhd_stereo_micro_matches_jax(micro, port_runs, run, key):
     """Same weights, images and rigs: every output of both streaming steps
     (the first with a zero cost volume and zero previous grids, the second
     through the cache, the cost volume and the BEV warp) and of the
-    F-frame forward within 2e-4 of the JAX output's peak."""
+    F-frame forward, also with the alignment after the view transformation
+    (the history ego 0.5 m back), within 2e-4 of the JAX output's peak."""
     want = micro[-1][run][key]
     assert _rel_to_peak(port_runs[run][key].numpy(), want) < 2e-4
 
@@ -126,6 +135,15 @@ def test_stream_cache_matches_jax(micro, port_runs, run):
 def test_history_changes_the_prediction(port_runs):
     a = port_runs["frames"]["occ_logits"]
     b = port_runs["frames_no_prev"]["occ_logits"]
+    assert a.shape == b.shape and not torch.allclose(a, b)
+
+
+def test_alignment_after_view_transformation_changes_the_prediction(
+        port_runs):
+    """The eval default warps the history grids: the flag is not a no-op
+    on this rig, so its parity test holds something."""
+    a = port_runs["frames"]["occ_logits"]
+    b = port_runs["frames_aavt"]["occ_logits"]
     assert a.shape == b.shape and not torch.allclose(a, b)
 
 
@@ -315,3 +333,19 @@ def test_model_class_must_match_the_preset():
         DHDStereoNet(t_config("dhd_micro"), device="cpu")
     assert isinstance(build_model(t_config("dhd_micro_stereo"),
                                   device="cpu"), DHDStereoNet)
+
+
+def test_tiny_stereo_takes_jax_variables():
+    """dhd_tiny_stereo's SFA takes the width flax infers (128), not the
+    config's unused sfa_in_channels (192): JAX's variables, shapes from
+    ``jax.eval_shape``, strict-load into the port's model."""
+    cfg_j = j_config("dhd_tiny_stereo")
+    batch = {k: jnp.asarray(v) for k, v in j_batch(
+        cfg_j, batch_size=1, seed=1, with_gt=False).items()}
+    shapes = jax.eval_shape(lambda b: j_build_model(cfg_j).init(
+        jax.random.PRNGKey(0), b, train=False), batch)
+    cfg = t_config("dhd_tiny_stereo")
+    model = build_model(cfg, device="cpu")
+    load_jax_variables(model, jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes), cfg)
+    assert model.mix.mix_shortcut[0].in_channels == 128
