@@ -158,7 +158,39 @@ Phases, one line each; any failure raises and exits non-zero:
 22. ``cli/test --ann-file --eval ray-iou`` on a 2-sample fixture in
    nuScenes' format with six 1600x900 JPEG cameras (the data pipeline's
    PIL resize and crop), both samples once, B1 and its plan once a
-   sample.
+   sample;
+23. export: a bf16 model's BatchNorm on the card within one bf16 ulp of
+   the fp32 formula (its statistics fp32); then ``cli/export``
+   in-process, bf16 at full width, B=1: DHD-S as the program + weights
+   split and with ``--bake-weights``, DHD-L split (three frames); each
+   program loaded fresh with ``torch.export.load``: at least 99.9% of
+   voxels with the live model's class on two new batches, B1 and its plan
+   once a frame and DHD-L's B3, B4 and B5 at phase 20's counts a sample,
+   inside the program (the ``dhd_tpu_torch::`` custom ops); ms/frame of
+   the loaded program against the live model, the files' sizes, the
+   export's time;
+24. int8: DHD-S bf16 ``cli/export --int8`` (2 synthetic calibration
+   batches): the voxel argmax over 3 held-out seeds flips against phase
+   23's fp program on under 2% of voxels (printed to 4 decimals beside
+   the TPU v5e's 0.4905%, a TPU number); one ``Int8Conv2d``'s
+   ``_int_mm`` int32 sums equal to the exact (float64) conv's; ms/frame
+   int8 against fp (loaded programs); a frame's device busy time int8
+   against fp (torch.profiler) and the int8 convs' share; every backbone
+   conv shape's int8 (and ``_int_mm`` alone) against bf16 cuDNN time;
+25. ``cli/benchmark --what exported --artifact`` on phase 23's DHD-S
+   program: a finite ms/iter, B1 and its plan launched;
+26. the distributed path on one card: ``initialize_distributed`` starts a
+   one-process NCCL group; two DHD-S bf16 train steps at B=4 through it
+   (SyncBN, the losses' global sums, the gradients' all-reduce) against
+   the same steps without a group: the first step's losses and
+   BatchNorm statistics bit for bit, grad_norm and the second step within
+   4x the spread of two runs without a group; ``cli/test --synthetic``
+   under the group; the group destroyed at the end, also on a failure;
+27. ``cli/train --ann-file`` for 2 steps at B=2 on a 4-sample fixture of
+   phase 22's format with lidar sweeps (the train pipeline's augmentation
+   and its lidar projection through ``native/``, built with g++ on the
+   card's host): losses finite, the CLI's s/it beside the train loader's
+   samples/s alone.
 
 Phases 4, 8, 13 and 17 compare fp32 on the GPU with the CPU and turn TF32
 off in cuDNN and matmul for their run; the others run in PyTorch's
@@ -167,8 +199,9 @@ defaults.
 Then one JSON line listing the kernels B1-B5 and B1's plan kernels
 (each shape's numbers under
 ``shapes``, launches per served path, per CLI run, over the timed
-train steps of phases 16 and 18 and per eval run of phases 19, 20 and 22
-under ``launches_by_path``), the
+train steps of phases 16 and 18, per eval run of phases 19, 20 and 22,
+in the loaded programs of phases 23 and 24 and in phase 26's distributed
+steps under ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
@@ -202,6 +235,7 @@ CV_ATOL, CV_RTOL = 2e-5, 1e-4   # B3 vs plain probabilities: the tolerance
 CV_FLOPS_VALID = 11         # per channel: 4 bilinear FMAs, sub, abs, add
 CV_FLOPS_OFF = 3            # off-image samples: sub, abs, add
 BF16_FLOP_PER_S = 989e12    # dense bf16 on the tensor cores
+INT8_OPS_PER_S = 1979e12    # dense int8 on the tensor cores
 ATTN_ULP_TOL = 4            # B4 vs plain, bf16 ulps of the output's peak:
 #                             the bar the TPU kernel held against XLA
 TERM_TOL = 2.0 ** -20       # B5 (and B1 at DHD-L) vs plain, per element:
@@ -248,6 +282,20 @@ DVR_TOL = 1e-4              # phase 21: dvr.render card vs CPU, of the peak
 #                             of pred_dist and of grad_sigma (the card's
 #                             gradient sums by atomics, in no fixed order),
 #                             on all but RAY_MOVED_MAX of the rays / voxels
+# the share of voxels whose argmax may flip under int8 serving (JAX's own
+# test bound, tests/test_quant.py); the v5e read 0.4905% (README.md)
+INT8_FLIP_MAX = 0.02
+INT8_FLIP_V5E = 0.004905
+EXPORT_FRAMES = 5           # frames of each loaded program timed, 23-24
+DDP_STEPS = 2               # phase 26: train steps with and without a group
+# phase 26, the same two DHD-S bf16 steps in a group of one and without:
+# the first step's losses and BatchNorm statistics bit for bit (a forward
+# is deterministic and a group of one sums nothing); grad_norm and the
+# second step, which starts from the first's update, within DDP_SPREAD
+# times the spread of two runs without a group (the backward's atomics)
+# plus DDP_FLOOR
+DDP_SPREAD = 4.0
+DDP_FLOOR = 1e-7
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1005,17 +1053,13 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None, case=None):
     no_bias = cv_cost_plain(prev, curr, uf, vf, 0.0)
     torch.cuda.synchronize()
     err = float((cost_k - cost_p).abs().max())
-    p_k, p_p = torch.softmax(-cost_k, 1), torch.softmax(-cost_p, 1)
-    prob_err = float((p_k - p_p).abs().max())
-    check(bool(((p_k - p_p).abs() <= CV_ATOL + CV_RTOL * p_p.abs()).all()),
-          f"stereo_cost_volume_cuda probabilities differ from plain by "
-          f"{prob_err:.3e} (atol {CV_ATOL}, rtol {CV_RTOL})")
     hit_p = (cost_p - no_bias) > bias / 2
     hit_k = (cost_k - no_bias) > bias / 2
     # the bias goes where the warped channel 0 is exactly 0: the two may
     # part only where the exact warped value is within fp32 rounding
     # (TERM_TOL) of its terms, zero in one order of the fp32 sum only
-    flips = (hit_p != hit_k).nonzero(as_tuple=True)
+    flipped = hit_p != hit_k
+    flips = flipped.nonzero(as_tuple=True)
     n_flips = flips[0].numel()
     if n_flips:
         near, terms = warp0_exact(prev, uf, vf, flips)
@@ -1025,6 +1069,15 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None, case=None):
         check(flip_share <= TERM_TOL, f"bias landed on {n_flips} other "
               f"samples, the exact warped channel 0 there up to "
               f"{flip_share:.3e} of its terms (tol 2^-20)")
+    # a pixel's depth softmax holds by the bar where both put the bias on
+    # the same samples; a pixel with a sample held above is moved by it
+    same = ~flipped.any(1, keepdim=True)
+    p_k, p_p = torch.softmax(-cost_k, 1), torch.softmax(-cost_p, 1)
+    prob_err = float(((p_k - p_p).abs() * same).max())
+    check(bool((((p_k - p_p).abs() <= CV_ATOL + CV_RTOL * p_p.abs())
+                | ~same).all()),
+          f"stereo_cost_volume_cuda probabilities differ from plain by "
+          f"{prob_err:.3e} (atol {CV_ATOL}, rtol {CV_RTOL})")
     off = uf < -1e3
     n_off = int(off.sum())
     n_valid = off.numel() - n_off
@@ -1066,8 +1119,10 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None, case=None):
           f"{share_invalid:.4f} (off-image {n_off / off.numel():.4f}, "
           f"channel-0 zeros {share_zero:.4f}; "
           + (f"{n_flips} samples apart, the exact warped channel 0 there "
-             f"{flip_share:.2e} of its terms" if n_flips else "the same "
-             "samples") + f"); kernel {ms:.4f} ms, plain "
+             f"{flip_share:.2e} of its terms, their "
+             f"{int((~same).sum())} pixels' probabilities held by that"
+             if n_flips else "the same samples")
+          + f"); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {measured['bound_ms']:.4f} ms "
           f"({measured['bound_by']}, {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB; {measured['bound_share']:.3f} of the "
@@ -2449,21 +2504,31 @@ def recording_metric():
         MIoUMetric.add_batch = add
 
 
+def run_cli(main_fn, argv, counted=()):
+    """A CLI's ``main(argv)`` in-process with the ``counted`` wrappers'
+    launches set to 0 before it: (return code, printed text, launches,
+    wall s)."""
+    for fn in counted:
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    wall = time.perf_counter() - t0
+    return rc, out.getvalue(), {fn.__name__: fn.launches for fn in counted}, \
+        wall
+
+
 def run_eval_cli(argv, counted):
     """``cli/test``'s main in-process with every count set to 0 before it:
     (return code, printed text, launches, wall s, peak GB, recorded)."""
     from dhd_tpu_torch.cli.test import main as evaluate
 
-    for fn in counted:
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    with recording_metric() as seen, contextlib.redirect_stdout(out):
-        rc = evaluate(argv)
-    wall = time.perf_counter() - t0
-    return (rc, out.getvalue(), {fn.__name__: fn.launches for fn in counted},
-            wall, torch.cuda.max_memory_allocated() / 1e9, seen)
+    with recording_metric() as seen:
+        rc, text, launches, wall = run_cli(evaluate, argv, counted)
+    return (rc, text, launches, wall,
+            torch.cuda.max_memory_allocated() / 1e9, seen)
 
 
 def eval_ms_per_sample(model, batches, n: int = EVAL_TIMED):
@@ -2857,6 +2922,492 @@ def phase_eval_ann_file(dev, kernels, card, preset="dhd_s",
           flush=True)
 
 
+def frame_ms(run, batches, n: int = EXPORT_FRAMES):
+    """Host wall time of ``run(batch)`` to a synchronize: median of ``n``
+    after a warm-up, over ``batches`` in turn."""
+    run(batches[0])
+    ms = []
+    for k in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(batches[k % len(batches)])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ms)
+
+
+def mb(path) -> float:
+    import os
+    return os.path.getsize(path) / 1e6
+
+
+def bn_fp32_check(dev):
+    """A bf16 model's eval BatchNorm on the card (C=64, fp32 statistics
+    and affine drawn away from init, a bf16 input at DHD-S's 6x64x176):
+    its distance in bf16 ulps from the fp32 formula rounded to bf16."""
+    from dhd_tpu_torch.nn.layers import BatchNorm2d
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bn = BatchNorm2d(64).eval().to(dev).to(torch.bfloat16)
+    with torch.no_grad():
+        for t, lo, hi in ((bn.running_mean, -2, 2), (bn.running_var, 0.1, 1),
+                          (bn.weight, 0.5, 2), (bn.bias, -1, 1)):
+            t.uniform_(lo, hi, generator=g)
+        x = (3 * torch.randn((6, 64, 64, 176), generator=g, device=dev)).to(
+            torch.bfloat16)
+        y = bn(x)
+        want = ((x.float() - bn.running_mean[:, None, None])
+                * (torch.rsqrt(bn.running_var + bn.eps)
+                   * bn.weight)[:, None, None]
+                + bn.bias[:, None, None]).to(torch.bfloat16)
+    check(bn.weight.dtype == bn.running_var.dtype == torch.float32
+          and y.dtype == torch.bfloat16, "bf16 BatchNorm holds bf16 tensors")
+    return bf16_ulp_diff(y, want)
+
+
+def phase_export(dev, kernels, card, root):
+    """``cli/export`` in-process, bf16 at full width, B=1: DHD-S as the
+    program + weights split and with ``--bake-weights``, DHD-L split (its
+    three frames).  Each program loaded fresh with ``torch.export.load``
+    must give at least SERVE_ARGMAX_MIN of the live model's voxel classes
+    (the same seeded weights) on new batches, launch B1 and its plan once
+    a frame and DHD-L's B3, B4 and B5 at its eval forward's counts a
+    sample (phase 20); ms/frame of the loaded program against the live
+    model's, the file sizes and the export's time.  Returns the DHD-S
+    split artifact's path."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.cli.export import batch_inputs, load_program
+    from dhd_tpu_torch.cli.export import main as export
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import build_model
+
+    ulps = bn_fp32_check(dev)
+    check(ulps <= 1, f"bf16 BatchNorm {ulps} ulps from the fp32 formula")
+    print(f"phase 23: a bf16 model's BatchNorm keeps fp32 statistics and "
+          f"affine; on the card its bf16 output lies {ulps} bf16 ulp from "
+          f"the fp32 formula's; on {card}", flush=True)
+    paths = {}
+    for preset, variants in (("dhd_s", ("split", "baked")),
+                             ("dhd_l", ("split",))):
+        cfg = get_config(preset)
+        per = eval_launches_per_sample(cfg)
+        counted = [fn for name, fn in eval_counters().items()
+                   if name in per]
+        model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+        examples = [synthetic_batch(cfg, 1, seed=s, with_gt=False)
+                    for s in (31, 32)]
+        for variant in variants:
+            path = f"{root}/{preset}_{variant}.pt2"
+            rc, text, _, wall = run_cli(export, [
+                "--preset", preset, "--out", path, "--bf16",
+                *(["--bake-weights"] if variant == "baked" else [])])
+            check(rc == 0 and "exported" in text, f"export {preset}: {text}")
+            fn, meta = load_program(path)
+            batches = [batch_inputs(b, meta["inputs"], dev)
+                       for b in examples]
+            for f in counted:
+                f.launches = 0
+            with torch.no_grad():
+                got = [fn(b) for b in batches]
+            launches = {f.__name__: f.launches for f in counted}
+            want = {k: len(batches) * v for k, v in per.items()}
+            check(launches == want, f"exported {preset} {variant}: "
+                  f"launches {launches}, want {want}")
+            for f in counted:
+                by_path = kernels[f.__name__]["launches_by_path"]
+                by_path[f"export_{preset}"] = by_path.get(
+                    f"export_{preset}", 0) + f.launches
+            with torch.no_grad():
+                live = [model(b)["occ_logits"].argmax(-1).to(torch.uint8)
+                        for b in batches]
+            agree = float(np.mean([(g == w).float().mean().item()
+                                   for g, w in zip(got, live)]))
+            check(agree >= SERVE_ARGMAX_MIN, f"exported {preset} {variant}: "
+                  f"{agree:.6f} of voxels agree with the live model")
+            with torch.no_grad():
+                prog_ms = frame_ms(fn, batches)
+                live_ms = frame_ms(lambda b: model(b)["occ_logits"].argmax(
+                    -1).to(torch.uint8), batches)
+            sizes = f"{mb(path):.2f} MB" + (
+                f" + weights {mb(path + '.weights.pt'):.2f} MB"
+                if variant == "split" else "")
+            print(f"phase 23 ok: cli/export --preset {preset} --bf16 "
+                  f"({variant}) in {wall:.1f} s (build, live run, trace, "
+                  f"save), {sizes}; loaded fresh: {agree:.6f} of voxels "
+                  f"with the live model's class on 2 new batches, launches "
+                  f"{launches}; {prog_ms:.2f} ms/frame loaded against "
+                  f"{live_ms:.2f} live (median of {EXPORT_FRAMES}); on "
+                  f"{card}", flush=True)
+            paths[(preset, variant)] = path
+            del fn
+        del model
+        torch.cuda.empty_cache()
+    return paths[("dhd_s", "split")]
+
+
+def int8_conv_check(qmodel, batch, dev):
+    """One Int8Conv2d of ``qmodel`` at the input a frame gives it: its
+    ``_int_mm`` int32 sums against the exact float64 conv, bit for bit.
+    Returns the conv's name and input shape."""
+    from dhd_tpu_torch.nn.quant import (Int8Conv2d, activation_scale,
+                                        int8_conv_int32,
+                                        int8_conv_int32_plain)
+
+    name = "img_backbone.layer1.0.conv2"
+    conv = qmodel.get_submodule(name)
+    check(isinstance(conv, Int8Conv2d), f"{name} is {type(conv).__name__}")
+    seen = []
+    h = conv.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    with torch.no_grad():
+        qmodel(batch)
+    h.remove()
+    x = seen[0]
+    xq = torch.clamp(torch.round(x.float() / activation_scale(conv.amax)),
+                     -127, 127).to(torch.int8)
+    wq, _ = conv.quantized_weight()
+    args = (conv.stride, conv.padding, conv.dilation)
+    got = int8_conv_int32(xq, wq, *args)
+    want = int8_conv_int32_plain(xq, wq, *args)
+    check(torch.equal(got, want), f"{name}: _int_mm int32 sums differ from "
+          f"the exact conv by {int((got - want).abs().max())}")
+    return name, tuple(x.shape), int(got.abs().max())
+
+
+def int8_conv_shapes(qmodel, model, batch):
+    """Every distinct conv shape of the int8 backbone, timed on the input a
+    frame gives it: the whole Int8Conv2d (quantize, im2col, ``_int_mm``,
+    dequantize), ``_int_mm`` alone, the plain (float64) int32 sums, and
+    the bf16 cuDNN conv it replaces; and the Int8Conv2d's bound (its bf16
+    input and output and fp weight once against the card's memory rate,
+    2 M K N int8 operations against its int8 rate).  [(input shape,
+    weight shape, count, int8 ms, _int_mm ms, plain ms, bf16 ms, bound
+    ms, bound_by)]."""
+    import torch.nn.functional as F
+
+    from dhd_tpu_torch.nn.quant import (Int8Conv2d, activation_scale,
+                                        int8_conv_int32_plain)
+
+    inputs, names = {}, {}
+    hooks = []
+    for name, m in qmodel.named_modules():
+        if isinstance(m, Int8Conv2d):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a, name=name: inputs.setdefault(name, a[0])))
+    with torch.no_grad():
+        qmodel(batch)
+    for h in hooks:
+        h.remove()
+    for name, x in inputs.items():
+        m = qmodel.get_submodule(name)
+        key = (tuple(x.shape), tuple(m.weight.shape), m.stride, m.padding)
+        names.setdefault(key, []).append(name)
+    rows = []
+    with torch.no_grad():
+        for key, group in names.items():
+            q = qmodel.get_submodule(group[0])
+            fp = model.get_submodule(group[0])
+            x = inputs[group[0]]
+            xq = torch.clamp(torch.round(x.float() / activation_scale(
+                q.amax)), -127, 127).to(torch.int8)
+            wq, _ = q.quantized_weight()
+            args = (q.stride, q.padding, q.dilation)
+            y = q(x)
+            b, cin, _, _ = x.shape
+            co, _, kh, kw = wq.shape
+            m_rows = b * y.shape[2] * y.shape[3]
+            k = -(-cin * kh * kw // 8) * 8
+            a = torch.zeros((m_rows, k), dtype=torch.int8, device=x.device)
+            w = torch.zeros((-(-co // 8) * 8, k), dtype=torch.int8,
+                            device=x.device)
+            nbytes = (x.numel() * x.element_size() + y.numel()
+                      * y.element_size() + fp.weight.numel()
+                      * fp.weight.element_size())
+            ops = 2 * m_rows * cin * kh * kw * co
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S)
+            rows.append((key[0], key[1], len(group),
+                         time_ms(lambda: q(x), iters=20),
+                         time_ms(lambda: torch._int_mm(a, w.t()), iters=20),
+                         time_ms(lambda: int8_conv_int32_plain(xq, wq, *args),
+                                 iters=5),
+                         time_ms(lambda: F.conv2d(
+                             x, fp.weight, fp.bias, fp.stride, fp.padding,
+                             fp.dilation), iters=20),
+                         1e3 * bound,
+                         "bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / INT8_OPS_PER_S else "operations"))
+    return rows
+
+
+def phase_int8(dev, kernels, card, root, fp_path):
+    """DHD-S bf16 ``cli/export --int8`` (2 synthetic calibration batches):
+    over 3 held-out seeds its voxel argmax flips against the fp program
+    (phase 23's) on at most INT8_FLIP_MAX of voxels; one Int8Conv2d's
+    ``_int_mm`` sums equal the exact conv's; ms/frame fp against int8
+    (loaded programs); a frame's device busy time, int8 against fp
+    (torch.profiler, the live models), and the int8 convs' share of it;
+    each backbone conv shape's int8 and bf16 cuDNN times."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.cli.export import (batch_inputs, calibration_batches,
+                                          load_program)
+    from dhd_tpu_torch.cli.export import main as export
+    from dhd_tpu_torch.cli.export import parse_args as export_args
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import build_model
+    from dhd_tpu_torch.nn.quant import (DEFAULT_PREFIXES, calibrate_int8,
+                                        quantize_model, targeted_convs)
+    from dhd_tpu_torch.profiling import trace_device
+
+    cfg = get_config("dhd_s")
+    per = eval_launches_per_sample(cfg)
+    counted = [fn for name, fn in eval_counters().items() if name in per]
+    path = f"{root}/dhd_s_int8.pt2"
+    argv = ["--preset", "dhd_s", "--out", path, "--bf16", "--int8"]
+    rc, text, _, wall = run_cli(export, argv)
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
+    n_convs = len(targeted_convs(model, DEFAULT_PREFIXES))
+    check(rc == 0 and f"calibrated {n_convs} conv activation scales (2 "
+          f"synthetic batches" in text, f"export --int8: {text}")
+    q_fn, meta = load_program(path)
+    fp_fn, _ = load_program(fp_path)
+    batches = [batch_inputs(synthetic_batch(cfg, 1, seed=s, with_gt=False),
+                            meta["inputs"], dev) for s in (41, 42, 43)]
+    for f in counted:
+        f.launches = 0
+    with torch.no_grad():
+        q_out = [q_fn(b) for b in batches]
+    launches = {f.__name__: f.launches for f in counted}
+    check(launches == {k: 3 * v for k, v in per.items()},
+          f"int8 program: launches {launches}")
+    for f in counted:
+        kernels[f.__name__]["launches_by_path"]["int8_dhd_s"] = f.launches
+    with torch.no_grad():
+        fp_out = [fp_fn(b) for b in batches]
+    flips = [float((q != f).float().mean()) for q, f in zip(q_out, fp_out)]
+    flip = float(np.mean(flips))
+    check(flip < INT8_FLIP_MAX, f"int8 flips {flip:.4%} of voxels (max "
+          f"{INT8_FLIP_MAX:.0%})")
+    with torch.no_grad():
+        q_ms, fp_ms = frame_ms(q_fn, batches), frame_ms(fp_fn, batches)
+
+    calib, _ = calibration_batches(cfg, export_args(argv), meta["inputs"],
+                                   dev)
+    qmodel = quantize_model(model, calibrate_int8(model, calib),
+                            DEFAULT_PREFIXES)
+    conv_name, conv_in, peak = int8_conv_check(qmodel, batches[0], dev)
+    with torch.no_grad():
+        busy = {name: sum(trace_device(lambda m=m: m(batches[0]),
+                                       dev)["ops"].values())
+                for name, m in (("int8", qmodel), ("fp", model))}
+    rows = int8_conv_shapes(qmodel, model, batches[0])
+    int8_ms = sum(r[2] * r[3] for r in rows)
+    bf16_ms = sum(r[2] * r[6] for r in rows)
+    print(f"phase 24 ok: cli/export --preset dhd_s --bf16 --int8 in "
+          f"{wall:.1f} s, {mb(path):.2f} MB + weights "
+          f"{mb(path + '.weights.pt'):.2f} MB; argmax flips against the fp "
+          f"program {flip:.4%} of voxels (seeds "
+          f"{', '.join(f'{x:.4%}' for x in flips)}; "
+          f"max {INT8_FLIP_MAX:.0%}; a TPU v5e read {INT8_FLIP_V5E:.4%}, "
+          f"README.md, not this card); launches {launches}; {conv_name} "
+          f"at {conv_in}: _int_mm int32 sums equal the exact conv's "
+          f"(peak |sum| {peak}); {q_ms:.2f} ms/frame int8 against "
+          f"{fp_ms:.2f} fp (loaded programs, median of {EXPORT_FRAMES}); "
+          f"device busy a frame {busy['int8']:.2f} ms int8 against "
+          f"{busy['fp']:.2f} fp (live models, torch.profiler), of which "
+          f"the backbone's convs {int8_ms:.2f} ms int8 "
+          f"({int8_ms / busy['int8']:.3f}) "
+          f"against {bf16_ms:.2f} bf16 cuDNN (each shape by CUDA events "
+          f"times its count); on {card}" + "".join(
+              f"\n    conv x{n} in {x} w {w}: int8 {a:.4f} ms (_int_mm "
+              f"{m:.4f}), plain (float64) {p:.4f}, bf16 cuDNN {c:.4f}, "
+              f"bound {bd:.4f} ({by})"
+              for x, w, n, a, m, p, c, bd, by in rows), flush=True)
+    del model, qmodel
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_benchmark_exported(dev, card, path):
+    """``cli/benchmark --what exported --artifact`` on phase 23's DHD-S
+    program: a finite ms/iter, B1 and its plan launched."""
+    from dhd_tpu_torch.cli.benchmark import main as bench
+    from dhd_tpu_torch.ops import mghs_pool_cuda
+    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
+
+    rc, text, launches, wall = run_cli(
+        bench, ["--what", "exported", "--artifact", path, "--iters", "10"],
+        (mghs_pool_cuda, pool_plan_cuda))
+    m = re.search(r"exported artifact .*?: ([\d.]+) ms/iter = ([\d.]+) "
+                  r"samples/s", text)
+    check(rc == 0 and m is not None and math.isfinite(float(m.group(1)))
+          and launches["mghs_pool_cuda"] == 11
+          and launches["pool_plan_cuda"] == 11,
+          f"benchmark --what exported: launches {launches}: {text}")
+    print(f"phase 25 ok: cli/benchmark --what exported --artifact "
+          f"{path.rsplit('/', 1)[-1]} in {wall:.1f} s: "
+          f"{text.splitlines()[0]}; launches {launches}; on {card}",
+          flush=True)
+
+
+def ddp_steps(cfg, dev, batch, steps: int = DDP_STEPS):
+    """``steps`` bf16 train steps of ``cfg`` from seed 0 on ``batch``:
+    the metrics of each and the BatchNorm statistics after each."""
+    from dhd_tpu_torch.train import train_step
+
+    model, opt, ema, gen = train_setup(cfg, dev)
+    out = []
+    for _ in range(steps):
+        m = train_step(model, opt, ema, batch, gen,
+                       compute_dtype=torch.bfloat16)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: v.clone() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}))
+    return out
+
+
+def step_errors(a1, a2, abn2, b1, b2, bbn2):
+    """Relative differences of two runs of :func:`ddp_steps`: the first
+    step's grad_norm, the second step's metrics, and its BatchNorm
+    statistics (of each tensor's peak)."""
+    yield abs(a1["grad_norm"] - b1["grad_norm"]) / b1["grad_norm"]
+    yield from (abs(a2[k] - v) / abs(v) for k, v in b2.items())
+    yield from (float((abn2[k] - v).abs().max()
+                      / v.abs().max().clamp_min(1e-12))
+                for k, v in bbn2.items())
+
+
+def phase_ddp(dev, kernels, card):
+    """The distributed path on one card: ``initialize_distributed`` starts
+    a one-process NCCL group (MASTER_ADDR 127.0.0.1, a free port); two
+    DHD-S bf16 train steps at B=4 (a varied rig) through it (SyncBN's
+    all-reduce, the losses' global sums, the gradients' all-reduce)
+    against the same two steps without a group, run twice; then
+    ``cli/test --synthetic`` (2 samples) under the group.  The group is
+    destroyed at the end, also on a failure, which still raises."""
+    import os
+    import socket
+
+    from dhd_tpu_torch import get_config, parallel
+    from dhd_tpu_torch.cli.test import main as evaluate
+    from dhd_tpu_torch.data import synthetic_batch
+
+    cfg = get_config("dhd_s")
+    # a varied rig: on the plain one the camera embedding's BatchNorm
+    # normalises rounding noise (ROADMAP.md §C.3), and two runs of one
+    # step part by percents
+    batch = on_device(synthetic_batch(cfg, 4, seed=0, with_gt=True,
+                                      varied_rig=True), dev)
+    counted = list(eval_counters().values())
+    plain, control = ddp_steps(cfg, dev, batch), ddp_steps(cfg, dev, batch)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(parallel.initialize_distributed(dev, always=True)
+              and parallel.is_distributed(), "no process group")
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        group = ddp_steps(cfg, dev, batch)
+        torch.cuda.synchronize()
+        ddp_s = time.perf_counter() - t0
+        for fn in counted:
+            if fn.launches:
+                kernels[fn.__name__]["launches_by_path"]["ddp_train"] = \
+                    fn.launches
+        launches = {fn.__name__: fn.launches for fn in counted
+                    if fn.launches}
+        check(launches == {"mghs_pool_cuda": DDP_STEPS,
+                           "pool_plan_cuda": DDP_STEPS},
+              f"ddp train: launches {launches}")
+        (m1, bn1), (m2, bn2) = group
+        (p1, pbn1), (p2, pbn2) = plain
+        losses1 = {k: v for k, v in m1.items() if k != "grad_norm"}
+        check(losses1 == {k: v for k, v in p1.items() if k != "grad_norm"}
+              and all(torch.equal(bn1[k], pbn1[k]) for k in bn1),
+              f"ddp step 1: losses {m1} against {p1}, or BatchNorm "
+              f"statistics not bit for bit")
+        (c1, _), (c2, cbn2) = control
+        spread = max(step_errors(c1, c2, cbn2, p1, p2, pbn2))
+        err = max(step_errors(m1, m2, bn2, p1, p2, pbn2))
+        bar = DDP_SPREAD * spread + DDP_FLOOR
+        check(err <= bar, f"ddp: grad_norm and step 2 {err:.2e} from the "
+              f"steps without a group, whose spread is {spread:.2e}")
+        rc, text, _, wall = run_cli(evaluate, ["--preset", "dhd_s",
+                                               "--synthetic"])
+        check(rc == 0 and "evaluated 2 samples" in text
+              and "===> mIoU: " in text and parallel.is_distributed(),
+              f"cli/test under the group: {text}")
+        print(f"phase 26 ok: a one-process NCCL group "
+              f"(initialize_distributed, port {port}): {DDP_STEPS} DHD-S "
+              f"bf16 train steps at B=4 through SyncBN, the global loss "
+              f"sums and the gradients' all-reduce in {ddp_s:.1f} s, "
+              f"launches {launches}; step 1's losses and BatchNorm "
+              f"statistics bit for bit the steps without a group; "
+              f"grad_norm and step 2's metrics and statistics within "
+              f"{err:.2e} (relative) of them, two runs without a group "
+              f"{spread:.2e} apart (bar {bar:.2e}); cli/test --synthetic "
+              f"under the group in {wall:.1f} s: {text.splitlines()[-1]}; "
+              f"on {card}",
+              flush=True)
+    finally:
+        parallel.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not parallel.is_distributed(), "the process group outlived the "
+          "phase")
+
+
+def phase_train_ann_file(dev, card, root, preset="dhd_s",
+                         img_wh=(1600, 900)):
+    """``cli/train --ann-file`` for 2 steps at B=2 on a 4-sample fixture
+    of phase 22's format (six 1600x900 JPEG cameras and a lidar sweep a
+    sample): the train pipeline's augmentation and its lidar projection
+    through ``native/`` (built with g++ on this host), finite losses; the
+    loader's samples/s alone (8 threads) beside the step time."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.cli.train import main as train
+    from dhd_tpu_torch.data.loader import PrefetchLoader
+    from dhd_tpu_torch.data.nuscenes import NuScenesOccDataset
+    from dhd_tpu_torch.data.pipeline import SamplePipeline
+    from dhd_tpu_torch.ops import mghs_pool_cuda
+
+    pkl = write_nuscenes_fixture(root, 4, img_wh)
+    rc, text, launches, wall = run_cli(train, [
+        "--preset", preset, "--ann-file", pkl, "--steps", "2",
+        "--batch-size", "2", "--log-interval", "1"], (mghs_pool_cuda,))
+    lines = [ln for ln in text.splitlines() if "loss_total=" in ln]
+    losses = [float(kv.split("=")[1]) for ln in lines
+              for kv in ln.split(") ", 1)[1].split()]
+    check(rc == 0 and len(lines) == 2
+          and all(math.isfinite(v) for v in losses)
+          and launches["mghs_pool_cuda"] == 2,
+          f"cli/train --ann-file: launches {launches}: {text}")
+    step_s = float(re.search(r"\(([\d.]+)s/it\)", lines[-1]).group(1))
+    cfg = get_config(preset)
+    ds = NuScenesOccDataset(pkl, "", num_adj_frames=cfg.num_adj_frames,
+                            stereo=cfg.stereo)
+    loader = PrefetchLoader(ds, SamplePipeline(cfg, is_train=True, seed=0),
+                            2, shuffle=True, num_workers=8, prefetch=3)
+    t0 = time.perf_counter()
+    n = sum(len(b["imgs"]) for _ in range(2) for b in loader)
+    load_s = time.perf_counter() - t0
+    print(f"phase 27 ok: cli/train --preset {preset} --ann-file (4 "
+          f"samples, six {img_wh[0]}x{img_wh[1]} JPEG cameras and a lidar "
+          f"sweep each, native/ built on this host) 2 steps at B=2 in "
+          f"{wall:.1f} s with the model's build: {step_s:.2f} s/it as the "
+          f"CLI prints it, losses finite; the train loader alone "
+          f"{n / load_s:.2f} samples/s ({n} samples, 8 threads, PIL "
+          f"decode, augmentation, lidar depth and height maps); on {card}"
+          + "".join(f"\n    {ln}" for ln in lines), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2912,6 +3463,17 @@ def main() -> int:
     phase_eval_dhd_l(dev, kernels, card)
     phase_rayiou(dev, card)
     phase_eval_ann_file(dev, kernels, card)
+    import tempfile
+
+    from dhd_tpu_torch.ops.cuda_build import BUILD_DIR
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        fp_path = phase_export(dev, kernels, card, root)
+        phase_int8(dev, kernels, card, root, fp_path)
+        phase_benchmark_exported(dev, card, fp_path)
+    phase_ddp(dev, kernels, card)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        phase_train_ann_file(dev, card, root)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))

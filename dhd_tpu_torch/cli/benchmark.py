@@ -9,14 +9,17 @@
       --device cpu
   python -m dhd_tpu_torch.cli.benchmark --preset dhd_s --what train \\
       --batch-size 4
+  python -m dhd_tpu_torch.cli.benchmark --what exported --artifact dhd_s.pt2
 
 Modes: ``full`` (one forward), ``stream`` (temporal presets: the streaming
 step with a cached pool plan and the rig-static stereo warp plan),
 ``stages`` (each top-level module alone), ``flops`` (counted by
 ``torch.utils.flop_counter``), ``cv`` (the stereo cost volume in parts),
-``pool`` (the pooling kernels and the raw segment-sum) and ``train`` (the
+``pool`` (the pooling kernels and the raw segment-sum), ``train`` (the
 whole train step, in bf16 mixed precision unless ``--fp32``, optionally
-with a precomputed pool plan).  It runs on the GPU
+with a precomputed pool plan) and ``exported`` (a ``cli/export`` artifact
+loaded fresh, ``--artifact``; its preset, batch and device are the
+artifact's).  It runs on the GPU
 unless ``--device cpu`` is given, where every kernel wrapper takes its
 plain version, and raises when there is no GPU and no ``--device``.  The
 inputs live on the device before timing; each timed loop runs one warm-up
@@ -34,12 +37,6 @@ import numpy as np
 import torch
 
 from dhd_tpu_torch.models.dhd import GEOM_KEYS, stereo_feat_channels
-
-# modes of the JAX CLI that need slices not ported yet
-NOT_PORTED = {
-    "exported": "cli/export",
-}
-
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
@@ -412,16 +409,51 @@ def run_train(args, cfg, dt, dev, batch) -> None:
         print(f"  {ms:10.3f} ms  x{cnt:<5d} {name}")
 
 
+def run_exported(args, dev) -> None:
+    """Time the deployment artifact as shipped, loaded fresh (the
+    reference's benchmark_trt.py analogue): ``cli/export``'s program,
+    with ``<artifact>.weights.pt`` where it exists, on its synthetic batch
+    (the model's inputs on the device)."""
+    from dhd_tpu_torch.cli.export import batch_inputs, load_program
+    from dhd_tpu_torch.config import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.profiling import kernel_launches
+
+    if not args.artifact:
+        raise SystemExit("--what exported needs --artifact")
+    fn, meta = load_program(args.artifact, dev)
+    if torch.device(meta["device"]).type != dev.type:
+        raise SystemExit(f"{args.artifact} was exported on "
+                         f"{meta['device']}, not {dev}")
+    bs = meta["batch_size"]
+    batch = batch_inputs(synthetic_batch(get_config(meta["preset"]), bs,
+                                         with_gt=False),
+                         meta["inputs"], meta["device"])
+    before = kernel_launches()
+    s = timed_s(lambda: fn(batch), args.iters, dev)
+    per_iter = {k: (v - before[k]) / (args.iters + 1)
+                for k, v in kernel_launches().items()}
+    print(f"{meta['preset']} exported artifact ({meta['dtype']}"
+          f"{', int8' if meta['int8'] else ''}, "
+          f"{'program + weights' if meta['split'] else 'baked weights'}): "
+          f"{s * 1e3:.2f} ms/iter = {bs / s:.1f} samples/s")
+    launched = ", ".join(f"{k} {v:g}" for k, v in per_iter.items() if v)
+    print(f"kernel launches an iteration: {launched or 'none'}"
+          + ("" if dev.type == "cuda" else " (a CPU program holds the "
+             "plain versions)"))
+
+
 MODES = {"full": run_full, "stream": run_stream, "stages": run_stages,
          "flops": run_flops, "cv": run_cv, "pool": run_pool,
-         "train": run_train}
+         "train": run_train, "exported": run_exported}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="dhd_s")
-    p.add_argument("--what", default="full",
-                   choices=[*MODES, *NOT_PORTED])
+    p.add_argument("--what", default="full", choices=list(MODES))
+    p.add_argument("--artifact", default=None,
+                   help="--what exported: the program cli/export wrote")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--fp32", dest="bf16", action="store_false")
@@ -441,16 +473,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="'cpu' runs every kernel's plain version on the "
                         "CPU; default: the GPU (raises without one)")
     args = p.parse_args(argv)
-    if args.what in NOT_PORTED:
-        raise SystemExit(
-            f"--what {args.what} is not ported yet: it comes with "
-            f"{NOT_PORTED[args.what]} (ROADMAP.md §A.8)")
 
     from dhd_tpu_torch.config import get_config
     from dhd_tpu_torch.data import synthetic_batch
     from dhd_tpu_torch.device import resolve_device
 
     dev = resolve_device(args.device)
+    if args.what == "exported":
+        run_exported(args, dev)
+        return 0
     cfg = get_config(args.preset)
     dt = torch.bfloat16 if args.bf16 else torch.float32
     batch = synthetic_batch(cfg, args.batch_size, seed=0, with_gt=False)

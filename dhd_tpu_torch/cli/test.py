@@ -6,8 +6,13 @@ reference's tools/test.py), with its flags and printed lines.
   python -m dhd_tpu_torch.cli.test --preset dhd_tiny --synthetic \\
       --device cpu                                          # smoke
 
-One process evaluates on one device: the GPU unless ``--device`` names
-another (it raises when there is no GPU and no ``--device``).  The
+A process evaluates on one device: the GPU unless ``--device`` names
+another (it raises when there is no GPU and no ``--device``).  Under
+``torchrun --nproc_per_node=N`` the processes evaluate disjoint shares of
+the batches (batch j on rank j mod N); the confusion matrices are summed
+over them and RayIoU's per-sample grids gathered to rank 0, which prints
+the metrics of the whole set (the JAX CLI shards each batch over its
+devices instead: the metrics are the same).  The
 forward runs under ``torch.inference_mode`` (kernels B1, B3, B4 and B5 on
 the GPU), the argmax and the confusion matrix stay on the device, and
 ``--eval ray-iou`` marches the lidar fan on it.  Temporal presets align
@@ -15,14 +20,14 @@ the history grids after the view transformation, as the reference's
 evaluation does, unless ``--no-aavt``.  ``--checkpoint`` reads a reference
 ``.pth`` state_dict (strict) or a port ``.pt`` from ``cli/train``
 (``--use-ema``: its EMA weights).  The JAX package's orbax directories
-and multi-device evaluation are not read or run here: they exit 1.
+are not read here: they exit 1.
 """
 from __future__ import annotations
 
 import argparse
-import os
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 
@@ -50,18 +55,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-device evaluation (ROADMAP.md §A.9) is not "
-                         "ported yet")
+    from dhd_tpu_torch import parallel
+    from dhd_tpu_torch.device import resolve_device
+
+    with parallel.process_group(resolve_device(args.device)) as dev:
+        return _evaluate(args, dev)
+
+
+def _evaluate(args: argparse.Namespace, dev: torch.device) -> int:
     import dataclasses
 
+    from dhd_tpu_torch import parallel
     from dhd_tpu_torch.config import get_config
-    from dhd_tpu_torch.device import resolve_device
     from dhd_tpu_torch.eval import MIoUMetric
     from dhd_tpu_torch.io import load_weights
     from dhd_tpu_torch.models import build_model
 
-    dev = resolve_device(args.device)
+    world, rank = parallel.world_size(), parallel.rank()
     cfg = get_config(args.preset)
     if cfg.temporal and not args.no_aavt:
         cfg = dataclasses.replace(cfg, align_after_view_transformation=True)
@@ -101,7 +111,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     preds_list, gts_list, token_idx = [], [], []
     n_eval = 0
     with torch.inference_mode():
-        for idxs, batch in batches:
+        for j, (idxs, batch) in enumerate(batches):
+            if j % world != rank:
+                continue
             n_eval += len(idxs)
             occ = model(batch)["occ_logits"].argmax(-1).to(torch.uint8)
             metric.add_batch(occ, batch["voxel_semantics"],
@@ -110,6 +122,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                 preds_list.extend(list(occ.cpu().numpy()))
                 gts_list.extend(list(batch["voxel_semantics"]))
                 token_idx.extend(idxs)
+
+    if world > 1:
+        cm = torch.from_numpy(np.append(metric.cm.reshape(-1), n_eval))
+        cm = parallel.sum_over_processes(cm.to(dev)).cpu().numpy()
+        metric.cm, n_eval = cm[:-1].reshape(metric.cm.shape), int(cm[-1])
+        metric.count = n_eval
+        shares = parallel.gather_objects((token_idx, preds_list, gts_list))
+        order = sorted(((i, p, g) for t, ps, gs in shares
+                        for i, p, g in zip(t, ps, gs)), key=lambda e: e[0])
+        token_idx = [i for i, _, _ in order]
+        preds_list = [p for _, p, _ in order]
+        gts_list = [g for _, _, g in order]
+        if rank:
+            return 0
 
     if args.eval == "ray-iou" and infos is not None:
         from dhd_tpu_torch.eval import rayiou_from_outputs, scene_origins

@@ -21,8 +21,19 @@ precision as in the JAX CLI: the forward in bf16 over fp32 master weights,
 the losses, gradients, AdamW moments and EMA in fp32 (checkpoints are
 fp32 either way).  ``--ann-file`` trains on a bevdetv2 infos pkl through
 the port's dataset, augmenting pipeline and prefetching loader (one epoch
-is ``len(loader)`` steps).  Multi-device runs are not ported yet: they
-exit 1 naming ROADMAP.md.
+is ``len(loader)`` steps).
+
+Several GPUs: ``torchrun --nproc_per_node=N -m dhd_tpu_torch.cli.train
+--batch-size <global>``.  ``--batch-size`` is the global batch, as in the
+JAX CLI (default: the reference per-GPU batch times N); each process
+loads its rows of it (the synthetic batch's contiguous share, the
+loader's strided shard of the shuffled samples) and takes the
+one-process step over the global batch (:mod:`dhd_tpu_torch.parallel`).
+Only rank 0 prints, logs and writes checkpoints; ``--auto-resume`` reads
+the newest checkpoint on every rank.  The dropout and DropPath masks are
+drawn per global sample; the ``--ann-file`` pipeline's augmentation is
+not: each process draws from its own stream over its own samples, as in
+the JAX CLI.
 """
 from __future__ import annotations
 
@@ -46,7 +57,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--data-root", default="")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--batch-size", type=int, default=None,
-                   help="default: the reference per-GPU batch")
+                   help="the global batch; default: the reference per-GPU "
+                        "batch times the processes")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--steps", type=int, default=None,
                    help="cap total steps (debug)")
@@ -86,30 +98,37 @@ def _newest_checkpoint(work_dir: Optional[str]) -> Tuple[Optional[str], int]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-device training (ROADMAP.md §A.9) is not "
-                         "ported yet")
+    from dhd_tpu_torch import parallel
+    from dhd_tpu_torch.device import resolve_device
 
+    with parallel.process_group(resolve_device(args.device)) as dev:
+        return _train(args, dev)
+
+
+def _train(args: argparse.Namespace, dev: torch.device) -> int:
+    from dhd_tpu_torch import parallel
     from dhd_tpu_torch.config import get_config
     from dhd_tpu_torch.data import synthetic_batch
-    from dhd_tpu_torch.device import resolve_device
     from dhd_tpu_torch.io import (load_checkpoint, load_weights,
                                   save_checkpoint)
     from dhd_tpu_torch.models import build_model
     from dhd_tpu_torch.profiling import kernel_launches
     from dhd_tpu_torch.train import AdamWSchedule, ModelEMA, train_step
 
-    dev = resolve_device(args.device)
+    world, rank = parallel.world_size(), parallel.rank()
+    lead = rank == 0
     cfg = get_config(args.preset)
-    batch_size = args.batch_size or PER_GPU_BATCH.get(cfg.name, 1)
+    batch_size = args.batch_size or PER_GPU_BATCH.get(cfg.name, 1) * world
+    rows = parallel.process_batch_slice(batch_size)
     epochs = args.epochs or cfg.optim.max_epochs
     if args.synthetic or args.ann_file is None:
         steps_per_epoch = N_SYNTHETIC_BATCHES
 
         def epoch_batches():
             for i in range(0, N_SYNTHETIC_BATCHES * batch_size, batch_size):
-                yield synthetic_batch(cfg, batch_size=batch_size,
-                                      seed=args.seed + i)
+                batch = synthetic_batch(cfg, batch_size=batch_size,
+                                        seed=args.seed + i)
+                yield {k: v[rows] for k, v in batch.items()}
     else:
         from dhd_tpu_torch.data.loader import PrefetchLoader
         from dhd_tpu_torch.data.nuscenes import NuScenesOccDataset
@@ -119,8 +138,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 stereo=cfg.stereo)
         pipe = SamplePipeline(cfg, is_train=True, data_root=args.data_root,
                               seed=args.seed)
-        loader = PrefetchLoader(ds, pipe, batch_size, shuffle=True,
-                                num_workers=8, prefetch=3, seed=args.seed)
+        loader = PrefetchLoader(ds, pipe, rows.stop - rows.start,
+                                shuffle=True, num_workers=8, prefetch=3,
+                                seed=args.seed, shard=(rank, world))
         steps_per_epoch = len(loader)
         if steps_per_epoch == 0:
             raise SystemExit(f"{args.ann_file} holds {len(ds)} samples, "
@@ -142,15 +162,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     resume = args.resume_from
     if args.auto_resume and not resume:
         resume, start_epoch = _newest_checkpoint(args.work_dir)
-        if resume:
+        if resume and lead:
             print(f"auto-resuming from {resume}", flush=True)
     if resume:
         step = load_checkpoint(resume, model, optimizer, ema, generator)
 
-    print(f"{cfg.name}: B={batch_size} on {dev}, "
-          f"{'bf16 mixed precision' if args.bf16 else 'fp32'}", flush=True)
+    if lead:
+        print(f"{cfg.name}: B={batch_size} on {dev}"
+              + (f" and {world - 1} more processes ({batch_size // world} "
+                 f"rows each)" if world > 1 else "")
+              + f", {'bf16 mixed precision' if args.bf16 else 'fp32'}",
+              flush=True)
     log_file = None
-    if args.work_dir:
+    if args.work_dir and lead:
         os.makedirs(args.work_dir, exist_ok=True)
         log_file = open(os.path.join(args.work_dir, "metrics.jsonl"), "a")
     try:
@@ -165,7 +189,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                      compute_dtype=compute_dtype)
                 step += 1
                 last = bool(args.steps) and step >= args.steps
-                if step % args.log_interval == 0 or last:
+                if (step % args.log_interval == 0 or last) and lead:
                     m = {k: float(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - t0
                     print(f"epoch {epoch} step {step} "
@@ -181,18 +205,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                     break
             if args.work_dir and (epoch + 1) % args.ckpt_interval == 0:
                 path = os.path.join(args.work_dir, f"epoch_{epoch + 1}.pt")
-                save_checkpoint(path, model, optimizer, ema, step, generator)
-                print(f"saved checkpoint {path}", flush=True)
+                if lead:
+                    save_checkpoint(path, model, optimizer, ema, step,
+                                    generator)
+                    print(f"saved checkpoint {path}", flush=True)
+                parallel.barrier()
             if args.steps and step >= args.steps:
                 break
     finally:
         if log_file is not None:
             log_file.close()
-    if dev.type == "cuda":
+    if dev.type == "cuda" and lead:
         print("kernel launches: " + ", ".join(
             f"{k} {v}" for k, v in kernel_launches().items() if v),
             flush=True)
-    print("training done", flush=True)
+    if lead:
+        print("training done", flush=True)
     return 0
 
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from dhd_tpu_torch.config import GridConfig
+from dhd_tpu_torch.parallel.mesh import global_sums
 
 
 def downsample_min_nonzero(gt: torch.Tensor, ds: int) -> torch.Tensor:
@@ -63,8 +64,9 @@ def bce_distribution_loss(pred_prob: torch.Tensor, labels: torch.Tensor,
     log1mp = torch.log1p(-p).clamp(min=-100.0)
     bce = -(labels * logp + (1.0 - labels) * log1mp)
     fg = fg_mask.float()
-    total = (bce * fg[..., None]).sum()
-    return total / fg.sum().clamp(min=1.0)
+    # over the global batch under a process group (losses/occ_loss.py)
+    total, n_fg = global_sums((bce * fg[..., None]).sum(), fg.sum())
+    return total / n_fg.clamp(min=1.0)
 
 
 def depth_height_labels(gt_depth: torch.Tensor, gt_height: torch.Tensor,

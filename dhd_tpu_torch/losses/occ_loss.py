@@ -16,6 +16,10 @@ The reference's ``inverse_sigmoid`` + BCE-with-logits(x, 1) composition is
 indexing.  The JAX package's packed-lane layout rules (the ``@ expand``
 broadcasts) are TPU rules: here the packed logits are viewed as
 (V, Dz, n_cls) and take one ``log_softmax``.  All fp32.
+
+Every loss is a ratio of sums over the batch.  Under a process group the
+sums are taken over the global batch (``parallel.global_sums``) before
+the ratios, as the JAX package's losses over a sharded batch are.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from dhd_tpu_torch.device import device_constant
+from dhd_tpu_torch.parallel.mesh import global_sums
 
 _EPS = 1e-5
 
@@ -50,7 +55,8 @@ def occ_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     ce = -logp.gather(1, labels[:, None])[:, 0]
     w = class_weight[labels] * mask
-    return (ce * w).sum() / w.sum().clamp(min=1e-6)
+    num, den = global_sums((ce * w).sum(), w.sum())
+    return num / den.clamp(min=1e-6)
 
 
 def geo_scal_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -63,10 +69,12 @@ def geo_scal_loss(logits: torch.Tensor, labels: torch.Tensor,
     nonempty_p = 1.0 - empty_p
     nonempty_t = (labels != free_class).float() * mask
     empty_t = (labels == free_class).float() * mask
-    inter = (nonempty_t * nonempty_p).sum()
-    precision = inter / ((nonempty_p * mask).sum() + _EPS)
-    recall = inter / (nonempty_t.sum() + _EPS)
-    spec = (empty_t * empty_p).sum() / (empty_t.sum() + _EPS)
+    inter, sum_p, sum_t, inter_e, sum_e = global_sums(
+        (nonempty_t * nonempty_p).sum(), (nonempty_p * mask).sum(),
+        nonempty_t.sum(), (empty_t * empty_p).sum(), empty_t.sum())
+    precision = inter / (sum_p + _EPS)
+    recall = inter / (sum_t + _EPS)
+    spec = inter_e / (sum_e + _EPS)
     return _neg_log(precision) + _neg_log(recall) + _neg_log(spec)
 
 
@@ -102,8 +110,9 @@ def sem_scal_loss(logits: torch.Tensor, labels: torch.Tensor,
     mask = mask.reshape(-1).float()
     onehot = F.one_hot(labels.reshape(-1).long(), n_cls).float() \
         * mask[:, None]
-    return _scal_terms(onehot.sum(0), (probs * mask[:, None]).sum(0),
-                       (probs * onehot).sum(0), mask.sum(), n_cls - 1)
+    return _scal_terms(*global_sums(
+        onehot.sum(0), (probs * mask[:, None]).sum(0),
+        (probs * onehot).sum(0), mask.sum()), n_cls - 1)
 
 
 def occ_losses_fused(logits: torch.Tensor, labels: torch.Tensor,
@@ -131,14 +140,13 @@ def occ_losses_fused_packed(flat_logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(x, dim=-1)
     w = class_weight[labels] * mask
     ce = -logp.gather(1, labels[:, None])[:, 0]
-    loss_ce = (ce * w).sum() / w.sum().clamp(min=1e-6)
-
     pm = logp.exp() * mask[:, None]
     onehot = F.one_hot(labels, n_cls).float()
-    sum_t = (onehot * mask[:, None]).sum(0)               # (n_cls,)
-    sum_p = pm.sum(0)
-    inter = (pm * onehot).sum(0)
-    n_masked = mask.sum()
+    ce_w, w_sum, sum_t, sum_p, inter, n_masked = global_sums(
+        (ce * w).sum(), w.sum(),
+        (onehot * mask[:, None]).sum(0),                  # (n_cls,)
+        pm.sum(0), (pm * onehot).sum(0), mask.sum())
+    loss_ce = ce_w / w_sum.clamp(min=1e-6)
 
     f = free_class
     g_inter = n_masked - sum_t[f] - sum_p[f] + inter[f]

@@ -280,7 +280,8 @@ class DHDNet(nn.Module):
     random weights (load real ones with
     :func:`dhd_tpu_torch.io.load_jax_variables` or ``load_state_dict``) in
     eval mode on ``device`` (default: the GPU; raises if there is none).
-    The camera-embedding BatchNorms stay in fp32 in a bf16 model.
+    Every BatchNorm keeps its affine and statistics in fp32 in a bf16 model
+    (and the camera embedding's normalises in fp32), as the JAX package's.
 
     In eval mode a call records no autograd graph, whatever the grad mode
     (serving).  After ``model.train()`` a grad-enabled call is the training

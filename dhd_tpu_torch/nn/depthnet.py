@@ -87,16 +87,11 @@ class DeformConv(nn.Module):
 
 
 class EmbeddingBN(BatchNorm1d):
-    """The camera embedding's BatchNorm (``mlp_bn``), kept in fp32 whatever
-    the model's dtype, as the JAX package keeps it
+    """The camera embedding's BatchNorm (``mlp_bn``), which also takes its
+    input in fp32 whatever the model's dtype, as the JAX package does
     (``dhd_tpu/nn/depthnet.py:187,219``).  The embedding holds intrinsics
     of ~557 px, where a bf16 step is 4: with trained running statistics a
     bf16 BN cancels to whole units away from the fp32 answer."""
-
-    def _apply(self, fn, *args, **kwargs):
-        super()._apply(fn, *args, **kwargs)
-        return super()._apply(
-            lambda t: t.float() if t.is_floating_point() else t)
 
 
 class _DistributionNet(nn.Sequential):

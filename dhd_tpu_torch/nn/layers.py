@@ -4,7 +4,9 @@ Attribute names follow the reference's state_dict key space (the naming
 template ``dhd_tpu/oracle/torch_ref.py`` uses), so a reference ``.pth`` or a
 converted JAX checkpoint loads with ``strict=True``.  BatchNorm keeps
 torch's keys and eval mode (eps 1e-5, running statistics); in training it
-is flax's ``nn.BatchNorm`` (:class:`BatchNorm2d`).
+is flax's ``nn.BatchNorm`` (:class:`BatchNorm2d`).  Its affine and
+statistics stay fp32 in a model cast to bf16, as flax's
+``param_dtype=float32`` keeps them.
 
 Convolutions and dense layers compute in their input's dtype
 (:class:`Conv2d`, :class:`Linear`, :class:`ConvTranspose2d`), as flax's
@@ -21,6 +23,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from dhd_tpu_torch.parallel.mesh import (global_rand, global_sums,
+                                         world_size)
 
 # flax's BatchNorm momentum as the JAX package sets it (torch's 0.1)
 FLAX_BN_MOMENTUM = 0.9
@@ -63,19 +68,39 @@ class Linear(nn.Linear):
 
 
 class _FlaxTrainBN:
-    """The train-mode forward of the JAX package's ``BatchNorm``
-    (``dhd_tpu/nn/layers.py:23-36``, flax ``nn.BatchNorm``): statistics in
-    fp32 (or wider) over every axis but the channels, the variance as
-    ``max(0, E[x^2] - E[x]^2)``, ``y = (x - mean) * (rsqrt(var + eps) *
-    weight) + bias``, and the running statistics stepped with the *biased*
-    batch variance, ``r = 0.9 r + 0.1 stat``.  torch's own BatchNorm steps
-    them with the unbiased variance, and raises on one value per channel,
-    where flax normalises to ``bias``.  Eval mode is torch's.
+    """The JAX package's ``BatchNorm`` (``dhd_tpu/nn/layers.py:23-36``,
+    flax ``nn.BatchNorm`` with ``param_dtype=float32``).
+
+    Its weight, bias and running statistics stay fp32 whatever dtype
+    ``.to()`` asks for.  In eval mode torch's BatchNorm normalises a bf16
+    input against them in fp32 and returns bf16, as flax does.
+
+    The train-mode forward: statistics in fp32 (or wider) over every axis
+    but the channels, the variance as ``max(0, E[x^2] - E[x]^2)``,
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``, and the
+    running statistics stepped with the *biased* batch variance,
+    ``r = 0.9 r + 0.1 stat``.  torch's own BatchNorm steps them with the
+    unbiased variance, and raises on one value per channel, where flax
+    normalises to ``bias``.  Under a process group the sums of x and x^2
+    are summed over every process first, by an all-reduce that autograd
+    differentiates, and divided by the global batch's count: a SyncBN, as
+    GSPMD makes every flax BatchNorm over a sharded batch.
 
     ``update_stats`` False keeps the running statistics as they are: a
     rematerialised block recomputed in the backward (:func:`remat`) must
     not step them a second time."""
     update_stats = True
+
+    def _apply(self, fn, *args, **kwargs):
+        def at_least_fp32(t):
+            out = fn(t)
+            if t.is_floating_point() and out.dtype != t.dtype:
+                # cast the unrounded tensor: a bf16 round trip would round
+                # the statistics
+                return t.to(device=out.device, dtype=torch.promote_types(
+                    out.dtype, torch.float32))
+            return out
+        return super()._apply(at_least_fp32, *args, **kwargs)
 
     def forward(self, x):
         if not self.training:
@@ -83,8 +108,12 @@ class _FlaxTrainBN:
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        s1, s2 = global_sums(xf.sum(dims), (xf * xf).sum(dims))
+        # every process holds as many rows (process_batch_slice); a Python
+        # count divides as in one process (CUDA multiplies by 1 / count)
+        count = xf.numel() // xf.shape[1] * world_size()
+        mean = s1 / count
+        var = (s2 / count - mean * mean).clamp_min(0.0)
         if self.update_stats:
             with torch.no_grad():
                 m = FLAX_BN_MOMENTUM
@@ -143,7 +172,8 @@ class Dropout(nn.Dropout):
     """flax's ``nn.Dropout``: in training each element is kept with
     probability ``1 - p`` and scaled by ``1 / (1 - p)``, by a mask drawn
     from ``generator`` (on the input's device; torch's default generator
-    when None)."""
+    when None) per global sample under a process group
+    (:func:`~dhd_tpu_torch.parallel.global_rand`)."""
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.p == 0.0:
@@ -151,8 +181,7 @@ class Dropout(nn.Dropout):
         if self.p == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
+        mask = global_rand(x.shape, generator, x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
 

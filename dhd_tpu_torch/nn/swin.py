@@ -38,6 +38,7 @@ from dhd_tpu_torch.ops.layer_norm import (fused_layer_norm_cuda,
                                           layer_norm_plain)
 from dhd_tpu_torch.ops.window_attention import (window_attention_cuda,
                                                 window_attention_plain)
+from dhd_tpu_torch.parallel.mesh import global_rand
 from .layers import Conv2d, Linear, remat
 
 
@@ -242,12 +243,14 @@ class DropPath(nn.Module):
              generator: Optional[torch.Generator] = None
              ) -> Optional[torch.Tensor]:
         """The (B, 1, 1) keep mask of ``x``'s images from ``generator`` (on
-        x's device; torch's default generator when None), or None where
-        the branch is kept whole."""
+        x's device; torch's default generator when None), drawn per global
+        image under a process group
+        (:func:`~dhd_tpu_torch.parallel.global_rand`), or None where the
+        branch is kept whole."""
         if not self.training or self.rate == 0.0:
             return None
-        return torch.rand((x.shape[0], 1, 1), generator=generator,
-                          device=x.device) < 1.0 - self.rate
+        return global_rand((x.shape[0], 1, 1), generator,
+                           x.device) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
                 ) -> torch.Tensor:

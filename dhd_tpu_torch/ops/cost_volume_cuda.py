@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from dhd_tpu_torch.ops.cuda_build import load
+from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 
 _FN = {torch.bfloat16: "stereo_cost_bf16", torch.float32: "stereo_cost_f32"}
 _CHUNK = {torch.bfloat16: 8, torch.float32: 4}   # elements per 16-byte load
@@ -101,7 +101,8 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
     CPU takes the plain version.  ``stereo_cost_volume_cuda.launches``
-    counts kernel launches.
+    counts kernel launches.  A trace (``torch.export``) records the launch
+    as the custom op ``dhd_tpu_torch::stereo_cost``.
     """
     if prev.device.type == "cpu":
         return cv_cost_plain(prev, curr, uf, vf, bias)
@@ -118,11 +119,10 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
             ("uf", uf, torch.float32, (bn, d, hs, ws)),
             ("vf", vf, torch.float32, (bn, d, hs, ws))):
         if t.dtype != dtype or t.device != prev.device \
-                or tuple(t.shape) != shape or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name}: want a contiguous, 16-byte aligned "
-                             f"{dtype} {shape} on {prev.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} {shape} "
+                             f"on {prev.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     chunk = _CHUNK[prev.dtype]
     if c % chunk or c // chunk > 32 * _MAX_CHUNKS_PER_LANE:
         raise ValueError(f"unsupported C={c} for {prev.dtype}: want a "
@@ -130,14 +130,27 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
                          f"{32 * _MAX_CHUNKS_PER_LANE * chunk}")
     if max(prev.numel(), uf.numel()) >= 2 ** 31:
         raise ValueError("inputs too large for int32 indices")
+    return _stereo_cost(prev, curr, uf, vf, float(bias))
+
+
+stereo_cost_volume_cuda.launches = 0
+
+
+def _launch(prev: torch.Tensor, curr: torch.Tensor, uf: torch.Tensor,
+            vf: torch.Tensor, bias: float) -> torch.Tensor:
+    """The kernel on checked CUDA tensors: the custom op's implementation."""
+    for name, t in (("prev", prev), ("curr", curr), ("uf", uf), ("vf", vf)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: want a 16-byte aligned tensor")
+    bn, hs, ws, c = prev.shape
+    d = uf.shape[1]
     cost = torch.empty((bn, d, hs, ws), dtype=torch.float32,
                        device=prev.device)
     if cost.numel() == 0:
         return cost
-
     err = _entry(prev.dtype)(
         prev.data_ptr(), curr.data_ptr(), uf.data_ptr(), vf.data_ptr(),
-        cost.data_ptr(), bn, d, hs, ws, c, float(bias),
+        cost.data_ptr(), bn, d, hs, ws, c, bias,
         torch._C._cuda_getCurrentRawStream(prev.get_device()))
     if err != 0:
         raise RuntimeError(
@@ -146,4 +159,6 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
     return cost
 
 
-stereo_cost_volume_cuda.launches = 0
+_stereo_cost = kernel_op(
+    "stereo_cost", _launch, lambda prev, curr, uf, vf, bias: prev.new_empty(
+        (prev.shape[0], uf.shape[1]) + prev.shape[1:3], dtype=torch.float32))

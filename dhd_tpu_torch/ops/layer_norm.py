@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from dhd_tpu_torch.ops.cuda_build import load
+from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 
 _FN = {torch.bfloat16: "layer_norm_bf16", torch.float32: "layer_norm_f32"}
 _MAX_C = 2048
@@ -67,7 +67,9 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
     CPU takes the plain version.  ``fused_layer_norm_cuda.launches`` counts
-    kernel launches.
+    kernel launches.  A trace (``torch.export``) records the launch as the
+    custom op ``dhd_tpu_torch::layer_norm``, which an exported program
+    runs on the card.
     """
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -80,27 +82,36 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     if c % 8 or not 0 < c <= _MAX_C:
         raise ValueError(f"unsupported C={c}: want a multiple of 8, at most "
                          f"{_MAX_C}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("x: want a contiguous, 16-byte aligned tensor")
-    index = x.get_device()
+    if not x.is_contiguous():
+        raise ValueError("x: want a contiguous tensor")
     for name, t in (("weight", weight), ("bias", bias)):
-        if t.dtype != torch.float32 or t.get_device() != index \
-                or t.shape != (c,) or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name}: want a contiguous, 16-byte aligned "
-                             f"fp32 ({c},) on "
+        if t.dtype != torch.float32 or t.device != x.device \
+                or t.shape != (c,) or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous fp32 ({c},) on "
                              f"{x.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    n = x.numel()
-    if n >= 2 ** 31:
+    if x.numel() >= 2 ** 31:
         raise ValueError("x too large for int32 indices")
+    return _layer_norm(x, weight, bias, eps)
+
+
+fused_layer_norm_cuda.launches = 0
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """The kernel on checked CUDA tensors: the custom op's implementation."""
+    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: want a 16-byte aligned tensor")
     out = torch.empty_like(x)
+    n, c = x.numel(), x.shape[-1]
     if n == 0:
         return out
-
     err = _entry(x.dtype)(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                           out.data_ptr(), n // c, c, eps,
-                          torch._C._cuda_getCurrentRawStream(index))
+                          torch._C._cuda_getCurrentRawStream(
+                              x.get_device()))
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error "
                            f"{err}")
@@ -108,4 +119,5 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
-fused_layer_norm_cuda.launches = 0
+_layer_norm = kernel_op("layer_norm", _launch,
+                        lambda x, weight, bias, eps: torch.empty_like(x))

@@ -28,11 +28,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
-from dhd_tpu_torch.ops.cuda_build import load
+from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 from dhd_tpu_torch.ops.grad_mode import records_grad
 from dhd_tpu_torch.ops.voxel_pool import PoolPlan, sorted_tables
 
@@ -95,7 +95,9 @@ def pool_plan_cuda(key_s: torch.Tensor, order: torch.Tensor,
     ``csrc/mghs_pool.cu`` (three launches, one host call) or raises; a
     tensor on the CPU takes :func:`pool_plan_plain`.  Nothing is read back
     to the host, so a frame that plans in the call does not wait.
-    ``pool_plan_cuda.launches`` counts host calls.
+    ``pool_plan_cuda.launches`` counts host calls.  A trace
+    (``torch.export``) records the call as the custom op
+    ``dhd_tpu_torch::pool_plan``.
     """
     if key_s.device.type == "cpu":
         return pool_plan_plain(key_s, order, seg_vox, num_seg_vox,
@@ -116,26 +118,50 @@ def pool_plan_cuda(key_s: torch.Tensor, order: torch.Tensor,
     n_pillars = num_seg_vox // dz
     if p < 1 or n_pillars < 1 or p * d >= 2 ** 31:
         raise ValueError(f"unsupported P={p}, {n_pillars} pillars")
+    out = _pool_plan(key_s, order, seg_vox, num_seg_vox, d, fh * fw, dz,
+                     piece)
     n_tasks, n_splits, n_slots = _schedule_sizes(n_pillars, p, piece)
+    tasks, splits, dix_s, z_s, starts, _ = out.split(
+        _plan_parts(n_pillars, p, piece))
+    return (dix_s, z_s, starts, tasks.view(n_tasks, 4),
+            splits.view(n_splits, 4), n_slots)
+
+
+def _plan_parts(n_pillars: int, p: int, piece: int) -> list:
+    """The sizes of the plan's one int32 allocation, the 16-byte rows
+    first: tasks, splits, dix_s, z_s, starts and the kernels' counts."""
+    n_tasks, n_splits, _ = _schedule_sizes(n_pillars, p, piece)
     n_tiles = -(-n_pillars // _PLAN_TILE)
-    # one allocation: the 16-byte rows first
-    out = torch.empty(4 * (n_tasks + n_splits) + 2 * p + n_pillars + 1
-                      + n_tiles * (piece + 3), dtype=torch.int32,
-                      device=key_s.device)
-    tasks, splits, dix_s, z_s, starts, counts = out.split(
-        [4 * n_tasks, 4 * n_splits, p, p, n_pillars + 1,
-         n_tiles * (piece + 3)])
+    return [4 * n_tasks, 4 * n_splits, p, p, n_pillars + 1,
+            n_tiles * (piece + 3)]
+
+
+def _plan_launch(key_s: torch.Tensor, order: torch.Tensor,
+                 seg_vox: torch.Tensor, num_seg_vox: int, d: int, hw: int,
+                 dz: int, piece: int) -> torch.Tensor:
+    """The plan kernels on checked CUDA tensors, into one int32 buffer
+    (:func:`_plan_parts`): the custom op's implementation."""
+    p, n_pillars = key_s.numel(), num_seg_vox // dz
+    parts = _plan_parts(n_pillars, p, piece)
+    out = torch.empty(sum(parts), dtype=torch.int32, device=key_s.device)
+    tasks, splits, dix_s, z_s, starts, counts = out.split(parts)
     err = _entry("plan")(
         key_s.data_ptr(), order.data_ptr(), seg_vox.data_ptr(), p, n_pillars,
-        dz, num_seg_vox, d, fh * fw, piece, dix_s.data_ptr(), z_s.data_ptr(),
-        starts.data_ptr(), tasks.data_ptr(), n_tasks, splits.data_ptr(),
-        n_splits, counts.data_ptr(),
+        dz, num_seg_vox, d, hw, piece, dix_s.data_ptr(), z_s.data_ptr(),
+        starts.data_ptr(), tasks.data_ptr(), parts[0] // 4,
+        splits.data_ptr(), parts[1] // 4, counts.data_ptr(),
         torch._C._cuda_getCurrentRawStream(key_s.get_device()))
     if err != 0:
         raise RuntimeError(f"mghs_pool plan launch failed: CUDA error {err}")
     pool_plan_cuda.launches += 1
-    return (dix_s, z_s, starts, tasks.view(n_tasks, 4),
-            splits.view(n_splits, 4), n_slots)
+    return out
+
+
+_pool_plan = kernel_op(
+    "pool_plan", _plan_launch,
+    lambda key_s, order, seg_vox, num_seg_vox, d, hw, dz, piece:
+    key_s.new_empty((sum(_plan_parts(num_seg_vox // dz, key_s.numel(),
+                                     piece)),), dtype=torch.int32))
 
 
 pool_plan_cuda.launches = 0
@@ -283,10 +309,11 @@ def mghs_pool_cuda(depth: torch.Tensor, feat: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
     CPU takes the plain version.  ``mghs_pool_cuda.launches`` counts kernel
-    launches.  Where autograd records the call, the result is
-    differentiable in ``depth`` and ``feat`` (:class:`_MGHSPool`);
-    ``band_mask`` and the plan get no gradient, as in JAX, where the gate
-    is a hard select.
+    launches.  A trace (``torch.export``) records the launch as the custom
+    op ``dhd_tpu_torch::mghs_pool``.  Where autograd records the call, the
+    result is differentiable in ``depth`` and ``feat``
+    (:class:`_MGHSPool`); ``band_mask`` and the plan get no gradient, as in
+    JAX, where the gate is a hard select.
     """
     if records_grad(depth, feat):
         return _MGHSPool.apply(depth, feat, band_mask, plan)
@@ -322,40 +349,64 @@ def _forward(depth: torch.Tensor, feat: torch.Tensor,
     if plan.tasks is None or plan.splits is None:
         raise ValueError("plan has no kernel schedule: build the plan from "
                          "tensors on the card")
-    # tasks and splits are read as int4: 16-byte rows
     for name, t, shape in (("dix_s", plan.dix_s, (p,)),
                            ("z_s", plan.z_s, (p,)),
                            ("starts", plan.starts, (n_pillars + 1,)),
                            ("tasks", plan.tasks, (plan.tasks.shape[0], 4)),
                            ("splits", plan.splits, (plan.splits.shape[0], 4))):
         if t.dtype != torch.int32 or t.device != feat.device \
-                or tuple(t.shape) != shape or not t.is_contiguous() \
-                or (len(shape) == 2 and t.data_ptr() % 16 != 0):
+                or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"plan.{name}: want a contiguous int32 {shape} "
-                             f"on {feat.device}, rows 16-byte aligned")
+                             f"on {feat.device}")
     if c < 1 or dz < 1:
         raise ValueError(f"unsupported C={c}, Dz={dz}")
     if pix_shape.numel() * d >= 2 ** 31:
         raise ValueError("depth table too large for int32 indices")
+    e0, e1 = plan.band_edges
+    return _mghs_pool(depth, feat, band_mask, plan.dix_s, plan.z_s,
+                      plan.tasks, plan.splits, list(plan.grid), plan.n_slots,
+                      e0, e1)
 
+
+def _launch(depth: torch.Tensor, feat: torch.Tensor, band_mask: torch.Tensor,
+            dix_s: torch.Tensor, z_s: torch.Tensor, tasks: torch.Tensor,
+            splits: torch.Tensor, grid: List[int], n_slots: int, e0: int,
+            e1: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on checked CUDA tensors and a plan's tensors: the custom
+    op's implementation."""
+    for name, t in (("plan.tasks", tasks), ("plan.splits", splits)):
+        if t.data_ptr() % 16:       # read as int4
+            raise ValueError(f"{name}: want 16-byte aligned rows")
+    b, dy, dx, dz = grid
+    d, c = depth.shape[-1], feat.shape[-1]
     bev = torch.empty((b, dy, dx, c), dtype=feat.dtype, device=feat.device)
     vox = torch.empty((b, dy, dx, dz, c), dtype=feat.dtype,
                       device=feat.device)
     # fp32 partial blocks (Dz vox rows and a bev row) of split pillars
-    scratch = torch.empty(plan.n_slots * (dz + 1) * c, dtype=torch.float32,
+    scratch = torch.empty(n_slots * (dz + 1) * c, dtype=torch.float32,
                           device=feat.device)
-    e0, e1 = plan.band_edges
     err = _entry(feat.dtype)(
         depth.data_ptr(), feat.data_ptr(), band_mask.data_ptr(),
-        plan.dix_s.data_ptr(), plan.z_s.data_ptr(), plan.tasks.data_ptr(),
-        plan.splits.data_ptr(), scratch.data_ptr(), bev.data_ptr(),
-        vox.data_ptr(), plan.tasks.shape[0], plan.splits.shape[0], n_pillars,
+        dix_s.data_ptr(), z_s.data_ptr(), tasks.data_ptr(),
+        splits.data_ptr(), scratch.data_ptr(), bev.data_ptr(),
+        vox.data_ptr(), tasks.shape[0], splits.shape[0], b * dy * dx,
         c, d, dz, e0, e1, *lanes_per_point(feat),
         torch._C._cuda_getCurrentRawStream(feat.get_device()))
     if err != 0:
         raise RuntimeError(f"mghs_pool kernel launch failed: CUDA error {err}")
     mghs_pool_cuda.launches += 1
     return bev, vox
+
+
+def _mghs_pool_fake(depth, feat, band_mask, dix_s, z_s, tasks, splits, grid,
+                    n_slots, e0, e1):
+    b, dy, dx, dz = grid
+    c = feat.shape[-1]
+    return (feat.new_empty((b, dy, dx, c)),
+            feat.new_empty((b, dy, dx, dz, c)))
+
+
+_mghs_pool = kernel_op("mghs_pool", _launch, _mghs_pool_fake)
 
 
 def mghs_pool_plan_grads(depth: torch.Tensor, feat: torch.Tensor,

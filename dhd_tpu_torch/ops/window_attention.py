@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from dhd_tpu_torch.ops.cuda_build import load
+from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 
 _FN = {torch.bfloat16: "window_attention_bf16",
        torch.float32: "window_attention_f32"}
@@ -101,7 +101,8 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
     CPU takes the plain version.  ``window_attention_cuda.launches`` counts
-    kernel launches.
+    kernel launches.  A trace (``torch.export``) records the launch as the
+    custom op ``dhd_tpu_torch::window_attention``.
     """
     if not qkv.is_cuda:
         if qkv.device.type == "cpu":
@@ -118,29 +119,40 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     if hd not in _HEAD_DIMS or not 0 < n <= _MAX_N:
         raise ValueError(f"unsupported shape: C={c}, heads={heads}, N={n}; "
                          f"want C/heads in {_HEAD_DIMS} and N <= {_MAX_N}")
-    index = qkv.get_device()
     n_img = 0 if mask is None else mask.shape[0]
     checks = (("qkv", qkv, (w, n, c3)), ("bias", bias, (heads, n, n)),
               ("mask", mask, (n_img, n, n)))
     for name, t, shape in checks:
-        if t is not None and (t.dtype != dt or t.get_device() != index
+        if t is not None and (t.dtype != dt or t.device != qkv.device
                               or t.shape != shape or not t.is_contiguous()):
             raise ValueError(f"{name}: want a contiguous {dt} {shape} on "
                              f"{qkv.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
     if mask is not None and (n_img == 0 or w % n_img):
         raise ValueError(f"mask: W={w} is not a multiple of nW_img={n_img}")
-    if qkv.data_ptr() % 16:     # the bf16 kernel loads 16-byte chunks
-        raise ValueError("qkv: want a 16-byte aligned tensor")
     if max(qkv.numel(), w * heads) >= 2 ** 31:
         raise ValueError("qkv too large for int32 indices")
+    return _window_attention(qkv, bias, mask, heads)
+
+
+window_attention_cuda.launches = 0
+
+
+def _launch(qkv: torch.Tensor, bias: torch.Tensor,
+            mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """The kernel on checked CUDA tensors: the custom op's implementation."""
+    if qkv.data_ptr() % 16:     # the bf16 kernel loads 16-byte chunks
+        raise ValueError("qkv: want a 16-byte aligned tensor")
+    w, n, c3 = qkv.shape
+    c, dt = c3 // 3, qkv.dtype
     out = qkv.new_empty((w, n, c))
     if out.numel() == 0:
         return out
-
+    index = qkv.get_device()
     err = _entry(dt)(qkv.data_ptr(), bias.data_ptr(),
                      0 if mask is None else mask.data_ptr(), out.data_ptr(),
-                     w, n, c, heads, n_img, attention_scale(hd, dt),
+                     w, n, c, heads, 0 if mask is None else mask.shape[0],
+                     attention_scale(c // heads, dt),
                      torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA "
@@ -149,4 +161,6 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-window_attention_cuda.launches = 0
+_window_attention = kernel_op(
+    "window_attention", _launch, lambda qkv, bias, mask, heads:
+    qkv.new_empty((qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)))

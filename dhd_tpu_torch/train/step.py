@@ -15,6 +15,7 @@ from dhd_tpu_torch.config import ModelConfig, class_weights
 from dhd_tpu_torch.device import device_constant
 from dhd_tpu_torch.losses import (bce_distribution_loss, depth_height_labels,
                                   occ_losses_fused, occ_losses_fused_packed)
+from dhd_tpu_torch.parallel.mesh import all_reduce_gradients
 from dhd_tpu_torch.train.ema import ModelEMA
 from dhd_tpu_torch.train.optim import AdamWSchedule
 
@@ -82,6 +83,12 @@ def train_step(model: nn.Module, optimizer: AdamWSchedule,
     losses, gradients, AdamW moments, running statistics and EMA in fp32.
     Returns the loss dict and ``grad_norm``, the gradients' global norm
     before clipping, as 0-dim tensors: nothing is read back to the host.
+
+    Under a process group each process passes its rows of the global
+    batch; the BatchNorms and the losses sum over the global batch and the
+    gradients are averaged after the backward, so every process takes the
+    one-process step over the global batch
+    (:mod:`dhd_tpu_torch.parallel.mesh`).
     """
     cfg = model.cfg
     model.train()
@@ -91,6 +98,7 @@ def train_step(model: nn.Module, optimizer: AdamWSchedule,
         out = model(batch, generator=generator, **extra)
     loss, metrics = total_loss(cfg, out, batch)
     loss.backward()
+    all_reduce_gradients(model.parameters())
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = optimizer.step()
     if ema is not None:

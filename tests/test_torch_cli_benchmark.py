@@ -1,8 +1,8 @@
 """The port's benchmark CLI (dhd_tpu_torch.cli.benchmark) run in-process
 on the CPU with ``--device cpu``, on the tiny presets: every mode prints
-the JAX CLI's lines with finite times (``train`` its losses too); the mode
-that needs an unported slice exits non-zero naming ROADMAP.md; without
-``--device`` and without a GPU it raises."""
+the JAX CLI's lines with finite times (``train`` its losses too;
+``exported`` is tests/test_torch_export.py's); without ``--device`` and
+without a GPU it raises."""
 import dataclasses
 import math
 import re
@@ -95,14 +95,6 @@ def test_profile_prints_ranges_and_top_ops(capsys):
     assert "device" not in out
     assert len([ln for ln in out.splitlines()
                 if re.match(r"\s+[\d.]+ ms\s+x\d+", ln)]) == 5
-
-
-@pytest.mark.parametrize("what", ["exported"])
-def test_unported_modes_exit_naming_the_roadmap(what):
-    with pytest.raises(SystemExit) as e:
-        main(["--what", what, "--device", "cpu"])
-    assert e.value.code not in (0, None)
-    assert "ROADMAP.md" in str(e.value.code)
 
 
 def test_train_prints_ms_per_step_and_finite_losses(capsys):

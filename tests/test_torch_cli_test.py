@@ -170,15 +170,17 @@ def test_train_cli_on_the_fixture(tiny, tmp_path, capsys):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """No GPU and no ``--device`` raises; an orbax directory and a
-    multi-device run exit 1."""
+    """No GPU and no ``--device`` raises; an orbax directory exits 1; a
+    multi-device run without torchrun's rendezvous (``MASTER_ADDR``)
+    raises."""
     (tmp_path / "orbax").mkdir()
     with pytest.raises(SystemExit, match="orbax"):
         cli.main(["--preset", "dhd_tiny", "--synthetic", "--device", "cpu",
                   "--checkpoint", str(tmp_path / "orbax")])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main(["--preset", "dhd_tiny", "--synthetic"])
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        cli.main(["--preset", "dhd_tiny", "--synthetic", "--device", "cpu"])
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

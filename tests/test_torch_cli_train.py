@@ -77,12 +77,6 @@ def test_unported_flags_exit_naming_the_roadmap(flag, tmp_path):
     assert "ROADMAP.md" in str(e.value.code)
 
 
-def test_multi_device_exits_naming_the_roadmap(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        main(ARGS)
-
-
 def test_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -26,7 +26,9 @@ def test_port_sources_found():
             "dhd_tpu_torch/ops/segment_sum.py", "dhd_tpu_torch/cli/test.py",
             "dhd_tpu_torch/eval/rayiou.py", "dhd_tpu_torch/ops/dvr.py",
             "dhd_tpu_torch/data/pipeline.py",
-            "dhd_tpu_torch/native/__init__.py"} <= names
+            "dhd_tpu_torch/native/__init__.py",
+            "dhd_tpu_torch/nn/quant.py", "dhd_tpu_torch/cli/export.py",
+            "dhd_tpu_torch/parallel/mesh.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
