@@ -222,6 +222,8 @@ import time
 import numpy as np
 import torch
 
+from dhd_tpu_torch import profiling
+
 # H100 SXM data-sheet peaks: HBM bytes/s and non-tensor-core fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -301,6 +303,12 @@ DDP_FLOOR = 1e-7
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def launch_count(fn) -> int:
+    """The launches of the kernel wrapper ``fn`` counted since the last
+    ``profiling.reset()``."""
+    return profiling.kernel_launches()[fn.__name__]
 
 
 def smi_name_power() -> str:
@@ -503,11 +511,12 @@ def phase_kernel(dev, kernels, preset="dhd_s", ptxas=None, case=None):
         pool_case(dev, preset) + (None,))
     fp32 = depth.dtype == torch.float32
     vt = cfg.vt
-    before = mghs_pool_cuda.launches
+    before = launch_count(mghs_pool_cuda)
     bev_k, vox_k = mghs_pool_cuda(depth, feat, band_mask, plan)
     bev_2, vox_2 = mghs_pool_cuda(depth, feat, band_mask, plan)
     torch.cuda.synchronize()
-    check(mghs_pool_cuda.launches == before + 2, "kernel launch not counted")
+    check(launch_count(mghs_pool_cuda) == before + 2,
+          "kernel launch not counted")
     check(torch.equal(bev_k, bev_2) and torch.equal(vox_k, vox_2),
           f"mghs_pool_cuda at {preset}: two calls differ")
     del bev_2, vox_2
@@ -652,11 +661,12 @@ def phase_plan(dev, kernels, preset, plan, keys=None):
     key_s, order = torch.sort(idx.key, stable=True)
     args = (key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
             vt.z_fine.size)
-    before = pool_plan_cuda.launches
+    before = launch_count(pool_plan_cuda)
     got = pool_plan_cuda(*args)
     want = pool_plan_plain(*args)
     torch.cuda.synchronize()
-    check(pool_plan_cuda.launches == before + 1, "plan launch not counted")
+    check(launch_count(pool_plan_cuda) == before + 1,
+          "plan launch not counted")
     check(all(g.shape == w.shape for g, w in zip(got[:5], want[:5]))
           and got[5] == want[5], f"pool_plan_cuda at {preset}: shapes differ")
     err = max(float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
@@ -727,7 +737,7 @@ def phase_serve(dev, kernels, card):
     warm_ms = 1e3 * (time.perf_counter() - t0)
 
     torch.cuda.reset_peak_memory_stats()
-    mghs_pool_cuda.launches = 0
+    profiling.reset()
     frame_ms, outs = [], []
     for frame in frames[1:]:
         t0 = time.perf_counter()
@@ -735,7 +745,7 @@ def phase_serve(dev, kernels, card):
         torch.cuda.synchronize()
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         outs.append(out["occ_logits"])
-    launches = mghs_pool_cuda.launches
+    launches = launch_count(mghs_pool_cuda)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kernels["mghs_pool_cuda"]["launches_by_path"] = {
         "dhd_s_serve": launches}
@@ -752,7 +762,7 @@ def phase_serve(dev, kernels, card):
     occ_p = plain(frames[1])["occ_logits"]
     rel = rel_to_peak(outs[0], occ_p)
     agree = float((outs[0].argmax(-1) == occ_p.argmax(-1)).float().mean())
-    check(mghs_pool_cuda.launches == 5, "plain path launched the kernel")
+    check(launch_count(mghs_pool_cuda) == 5, "plain path launched the kernel")
     check(rel <= SERVE_REL_TOL and agree >= SERVE_ARGMAX_MIN,
           f"kernel vs plain serving: rel err {rel:.3e} (tol "
           f"{SERVE_REL_TOL}), argmax agreement {agree:.6f} (min "
@@ -811,8 +821,7 @@ def phase_serve_uncached(dev, card, counted=(), n_frames: int = 20):
     model(frames[0])                               # warm-up frame
     torch.cuda.synchronize()
     counted = (mghs_pool_cuda, *counted)
-    for fn in counted:
-        fn.launches = 0
+    profiling.reset()
     frame_ms = []
     for frame in frames[1:]:
         t0 = time.perf_counter()
@@ -821,7 +830,7 @@ def phase_serve_uncached(dev, card, counted=(), n_frames: int = 20):
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         check(bool(torch.isfinite(out["occ_logits"]).all()),
               "occ_logits not finite")
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     check(all(n == n_frames for n in launches.values()),
           f"launches {launches} in {n_frames} frames")
     busy, top, _ = device_busy_ms(lambda: model(frames[1]))
@@ -1044,10 +1053,10 @@ def phase_cost_volume(dev, kernels, preset="dhd_m", ptxas=None, case=None):
     bn, _, hs, ws = uf.shape
     c = prev.shape[-1]
 
-    before = stereo_cost_volume_cuda.launches
+    before = launch_count(stereo_cost_volume_cuda)
     cost_k = stereo_cost_volume_cuda(prev, curr, uf, vf, bias)
     torch.cuda.synchronize()
-    check(stereo_cost_volume_cuda.launches == before + 1,
+    check(launch_count(stereo_cost_volume_cuda) == before + 1,
           "kernel launch not counted")
     cost_p = cv_cost_plain(prev, curr, uf, vf, bias)
     no_bias = cv_cost_plain(prev, curr, uf, vf, 0.0)
@@ -1280,10 +1289,10 @@ def phase_attention(dev, kernels, ptxas):
         bias = torch.randn((heads, n, n), generator=g, device=dev).to(bf16)
         mask = (torch.from_numpy(_shift_attn_mask(hp, wp, ws, ws // 2))
                 .to(dev, bf16) if "_shifted" in label else None)
-        before = window_attention_cuda.launches
+        before = launch_count(window_attention_cuda)
         out_k = window_attention_cuda(qkv, bias, mask, heads)
         torch.cuda.synchronize()
-        check(window_attention_cuda.launches == before + 1,
+        check(launch_count(window_attention_cuda) == before + 1,
               "kernel launch not counted")
         out_p = window_attention_plain(qkv, bias, mask, heads)
         err = float((out_k.float() - out_p.float()).abs().max())
@@ -1347,10 +1356,10 @@ def phase_layer_norm(dev, kernels, ptxas):
              ).to(torch.bfloat16)
         w = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
         b = 0.5 * torch.randn(c, generator=g, device=dev)
-        before = fused_layer_norm_cuda.launches
+        before = launch_count(fused_layer_norm_cuda)
         y_k = fused_layer_norm_cuda(x, w, b)
         torch.cuda.synchronize()
-        check(fused_layer_norm_cuda.launches == before + 1,
+        check(launch_count(fused_layer_norm_cuda) == before + 1,
               "kernel launch not counted")
         y_p = layer_norm_plain(x, w, b)
         ulps, share = ln_error(y_k, y_p, x, w, b)
@@ -1434,8 +1443,7 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
 
     per_frame = stream_kernels(cfg)
     torch.cuda.reset_peak_memory_stats()
-    for fn in per_frame:
-        fn.launches = 0
+    profiling.reset()
     frame_ms, outs, cache = [], [], cache0
     for frame in frames[1:]:
         t0 = time.perf_counter()
@@ -1443,13 +1451,13 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
         torch.cuda.synchronize()
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         outs.append(out["occ_logits"])
-    launches = {fn.__name__: fn.launches for fn in per_frame}
+    launches = {fn.__name__: launch_count(fn) for fn in per_frame}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for fn, k in per_frame.items():
         kernels[fn.__name__].setdefault("launches_by_path", {})[path] = \
-            fn.launches
-        check(fn.launches == 5 * k, f"{fn.__name__} launched {fn.launches} "
-              f"times in 5 frames, want {5 * k}")
+            launch_count(fn)
+        check(launch_count(fn) == 5 * k, f"{fn.__name__} launched "
+              f"{launch_count(fn)} times in 5 frames, want {5 * k}")
     want = (1, cfg.vt.x.size, cfg.vt.y.size, cfg.head_Dz, cfg.num_classes)
     for occ in outs:
         check(tuple(occ.shape) == want, f"occ_logits {tuple(occ.shape)}")
@@ -1467,9 +1475,9 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
     plain_frame_ms = 1e3 * (time.perf_counter() - t0)
     rel = rel_to_peak(outs[0], occ_p)
     agree = float((outs[0].argmax(-1) == occ_p.argmax(-1)).float().mean())
-    check(all(fn.launches == 5 * k for fn, k in per_frame.items()),
+    check(all(launch_count(fn) == 5 * k for fn, k in per_frame.items()),
           f"plain path launched a kernel: "
-          f"{ {fn.__name__: fn.launches for fn in per_frame} }")
+          f"{ {fn.__name__: launch_count(fn) for fn in per_frame} }")
     drift = (backbone_drift(model, plain, frames[1]["imgs"])
              if cfg.backbone == "swin_base" else [])
     frame = statistics.median(frame_ms)
@@ -1635,10 +1643,10 @@ def phase_segment_sum(dev, kernels, ptxas):
         seg_s, order = torch.sort(seg, stable=True)
         order32 = order.to(torch.int32)
         vals_s = vals[order].contiguous()
-        before = sorted_segment_sum.launches
+        before = launch_count(sorted_segment_sum)
         out_k = sorted_segment_sum(vals_s, seg_s, v, out_dt)
         torch.cuda.synchronize()
-        check(sorted_segment_sum.launches == before + 1,
+        check(launch_count(sorted_segment_sum) == before + 1,
               "kernel launch not counted")
         out_p = sorted_segment_sum_plain(vals_s, seg_s, v, out_dt)
         terms = sorted_segment_sum_plain(vals_s.abs(), seg_s, v)
@@ -1753,15 +1761,14 @@ def phase_cli(dev, kernels):
             "full": (mghs_pool_cuda, pool_plan_cuda), "flops": (),
             "train": (mghs_pool_cuda, pool_plan_cuda)}
     for what, preset, extra in runs:
-        for fn in counted:
-            fn.launches = 0
+        profiling.reset()
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = benchmark(["--preset", preset, "--what", what, *extra])
         wall = time.perf_counter() - t0
         text = out.getvalue()
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = {fn.__name__: launch_count(fn) for fn in counted}
         times = [float(t) for t in re.findall(r"(\S+) ms\b", text)]
         check(rc == 0, f"cli --what {what} returned {rc}")
         check(what == "flops" or (times and all(
@@ -1772,8 +1779,8 @@ def phase_cli(dev, kernels):
             check(flops is not None and float(flops.group(1)) > 0,
                   f"cli --what flops: {text}")
         for fn in must[what]:
-            check(fn.launches > 0, f"cli --what {what} --preset {preset}: "
-                  f"{fn.__name__} never launched")
+            check(launch_count(fn) > 0, f"cli --what {what} --preset "
+                  f"{preset}: {fn.__name__} never launched")
         if what == "stream":
             check("ship pool_plan and cv_static" in text,
                   "cli --what stream did not ship cv_static")
@@ -1789,10 +1796,10 @@ def phase_cli(dev, kernels):
         if what == "pool":
             for fn in must["pool"]:
                 kernels[fn.__name__].setdefault("launches_by_path", {})[
-                    f"cli_pool_{preset}"] = fn.launches
+                    f"cli_pool_{preset}"] = launch_count(fn)
         if what == "full":
             kernels["pool_plan_cuda"]["launches_by_path"][
-                f"cli_full_{preset}"] = pool_plan_cuda.launches
+                f"cli_full_{preset}"] = launch_count(pool_plan_cuda)
         print(f"phase 15 ok: cli --preset {preset} --what {what} "
               f"{' '.join(extra)} in {wall:.1f} s; launches {launches}"
               + "".join(f"\n    {ln}" for ln in text.splitlines()),
@@ -1873,8 +1880,7 @@ def timed_train(cfg, dev, b, counted, compute_dtype=None,
         one_step()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    for fn in counted:
-        fn.launches = 0
+    profiling.reset()
     torch.cuda.reset_peak_memory_stats()
     step_ms, metrics = [], []
     for _ in range(steps):
@@ -1883,7 +1889,7 @@ def timed_train(cfg, dev, b, counted, compute_dtype=None,
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(np.isfinite(v) for m in metrics for v in m.values()),
           f"{cfg.name} train metrics not finite: {metrics}")
@@ -1934,9 +1940,9 @@ def phase_train(dev, kernels, card):
                                                     "gen", "batch"))
     launches, metrics = run["launches"], run["metrics"]
     for fn in counted:
-        kernels[fn.__name__]["launches_by_path"]["train"] = fn.launches
-        check(fn.launches == TRAIN_STEPS, f"{fn.__name__} launched "
-              f"{fn.launches} times in {TRAIN_STEPS} train steps, want "
+        kernels[fn.__name__]["launches_by_path"]["train"] = launch_count(fn)
+        check(launch_count(fn) == TRAIN_STEPS, f"{fn.__name__} launched "
+              f"{launch_count(fn)} times in {TRAIN_STEPS} train steps, want "
               f"{TRAIN_STEPS}")
     want_updates = cfg.optim.ema_init_updates + TRAIN_WARMUP + TRAIN_STEPS
     step = statistics.median(run["step_ms"])
@@ -2027,8 +2033,9 @@ def phase_train(dev, kernels, card):
     steps = TRAIN_STEPS_BF16
     run = timed_train(cfg, dev, b, counted, torch.bfloat16, steps)
     for fn in counted:
-        kernels[fn.__name__]["launches_by_path"]["train_bf16"] = fn.launches
-        check(fn.launches == steps, f"{fn.__name__} launched {fn.launches} "
+        n = launch_count(fn)
+        kernels[fn.__name__]["launches_by_path"]["train_bf16"] = n
+        check(n == steps, f"{fn.__name__} launched {n} "
               f"times in {steps} bf16 train steps, want {steps}")
     step = statistics.median(run["step_ms"])
     busy, top, _ = device_busy_ms(run["one_step"], n_top=6)
@@ -2099,7 +2106,7 @@ def phase_train_dhd_l(dev, kernels, card):
         launches = run["launches"]
         for fn in counted:
             kernels[fn.__name__]["launches_by_path"][
-                f"train_dhd_l_{name}"] = fn.launches
+                f"train_dhd_l_{name}"] = launch_count(fn)
         check(launches == {k: v * steps for k, v in per_step.items()},
               f"DHD-L {name} launches {launches} in {steps} steps, want "
               f"{per_step} a step")
@@ -2381,7 +2388,7 @@ def phase_train_small(dev):
                                              aspp_dropout=0.0))
         batch = synthetic_batch(cfg, 2, seed=5, varied_rig=True)
         runs, weights = {}, None
-        before = [fn.launches for fn in counted]
+        before = [launch_count(fn) for fn in counted]
         for side, where, scale in (("gpu", dev, 1.0), ("cpu", cpu, 1.0),
                                    ("control", cpu, 1.0 + 2.0 ** -22)):
             model, opt, ema, _ = train_setup(cfg, where, seed=7)
@@ -2411,7 +2418,7 @@ def phase_train_small(dev):
                             for p, st in opt.adamw.state.items()}
             runs[side] = run
             if side == "gpu":
-                kernel_runs = tuple(fn.launches - n
+                kernel_runs = tuple(launch_count(fn) - n
                                     for fn, n in zip(counted, before))
                 update_err = adamw_update_error(cfg, init, run["params"],
                                                 run, lr)
@@ -2508,15 +2515,14 @@ def run_cli(main_fn, argv, counted=()):
     """A CLI's ``main(argv)`` in-process with the ``counted`` wrappers'
     launches set to 0 before it: (return code, printed text, launches,
     wall s)."""
-    for fn in counted:
-        fn.launches = 0
+    profiling.reset()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = main_fn(argv)
     wall = time.perf_counter() - t0
-    return rc, out.getvalue(), {fn.__name__: fn.launches for fn in counted}, \
-        wall
+    return (rc, out.getvalue(),
+            {fn.__name__: launch_count(fn) for fn in counted}, wall)
 
 
 def run_eval_cli(argv, counted):
@@ -2602,7 +2608,7 @@ def phase_eval(dev, kernels, card, preset="dhd_s"):
               f"{launches}, want {want} in 2 batches")
         for fn in counted:
             kernels[fn.__name__]["launches_by_path"][
-                f"eval_{preset}_{name}"] = fn.launches
+                f"eval_{preset}_{name}"] = launch_count(fn)
         preds = seen["preds"]
         cm = np.zeros((cfg.num_classes,) * 2, np.float64)
         for pred, b in zip(preds, batches):
@@ -2650,18 +2656,17 @@ def phase_eval_dhd_l(dev, kernels, card, preset="dhd_l"):
     model = build_model(cfg, dtype=bf16, device=dev)
     batches = [synthetic_batch(cfg, batch_size=1, seed=i) for i in range(2)]
     n = EVAL_TIMED
-    for fn in counted:
-        fn.launches = 0
+    profiling.reset()
     torch.cuda.reset_peak_memory_stats()
     ms, lo, hi = eval_ms_per_sample(model, batches, n)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: launch_count(fn) for fn in counted}
     want = {k: (n + 1) * v for k, v in per.items()}
     check(launches == want, f"{preset} eval: launches {launches} in "
           f"{n + 1} samples, want {per} a sample")
     for fn in counted:
         kernels[fn.__name__]["launches_by_path"][f"eval_{preset}_bf16"] = \
-            fn.launches
+            launch_count(fn)
     with torch.inference_mode():
         preds = [model(b)["occ_logits"].argmax(-1).cpu().numpy()[0]
                  for b in batches]
@@ -2910,7 +2915,7 @@ def phase_eval_ann_file(dev, kernels, card, preset="dhd_s",
           f"cli/test --ann-file: launches {launches}, want {want}")
     for fn in counted:
         kernels[fn.__name__]["launches_by_path"][f"eval_ann_file_{preset}"] \
-            = fn.launches
+            = launch_count(fn)
     lines = [ln for ln in text.splitlines()
              if ln.startswith(("RayIoU", "===> mIoU"))]
     print(f"phase 22 ok: cli/test --preset {preset} --ann-file (2 samples, "
@@ -3005,18 +3010,17 @@ def phase_export(dev, kernels, card, root):
             fn, meta = load_program(path)
             batches = [batch_inputs(b, meta["inputs"], dev)
                        for b in examples]
-            for f in counted:
-                f.launches = 0
+            profiling.reset()
             with torch.no_grad():
                 got = [fn(b) for b in batches]
-            launches = {f.__name__: f.launches for f in counted}
+            launches = {f.__name__: launch_count(f) for f in counted}
             want = {k: len(batches) * v for k, v in per.items()}
             check(launches == want, f"exported {preset} {variant}: "
                   f"launches {launches}, want {want}")
             for f in counted:
                 by_path = kernels[f.__name__]["launches_by_path"]
                 by_path[f"export_{preset}"] = by_path.get(
-                    f"export_{preset}", 0) + f.launches
+                    f"export_{preset}", 0) + launch_count(f)
             with torch.no_grad():
                 live = [model(b)["occ_logits"].argmax(-1).to(torch.uint8)
                         for b in batches]
@@ -3171,15 +3175,14 @@ def phase_int8(dev, kernels, card, root, fp_path):
     fp_fn, _ = load_program(fp_path)
     batches = [batch_inputs(synthetic_batch(cfg, 1, seed=s, with_gt=False),
                             meta["inputs"], dev) for s in (41, 42, 43)]
-    for f in counted:
-        f.launches = 0
+    profiling.reset()
     with torch.no_grad():
         q_out = [q_fn(b) for b in batches]
-    launches = {f.__name__: f.launches for f in counted}
+    launches = {f.__name__: launch_count(f) for f in counted}
     check(launches == {k: 3 * v for k, v in per.items()},
           f"int8 program: launches {launches}")
     for f in counted:
-        kernels[f.__name__]["launches_by_path"]["int8_dhd_s"] = f.launches
+        kernels[f.__name__]["launches_by_path"]["int8_dhd_s"] = launch_count(f)
     with torch.no_grad():
         fp_out = [fp_fn(b) for b in batches]
     flips = [float((q != f).float().mean()) for q, f in zip(q_out, fp_out)]
@@ -3308,18 +3311,17 @@ def phase_ddp(dev, kernels, card):
     try:
         check(parallel.initialize_distributed(dev, always=True)
               and parallel.is_distributed(), "no process group")
-        for fn in counted:
-            fn.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         group = ddp_steps(cfg, dev, batch)
         torch.cuda.synchronize()
         ddp_s = time.perf_counter() - t0
         for fn in counted:
-            if fn.launches:
+            if launch_count(fn):
                 kernels[fn.__name__]["launches_by_path"]["ddp_train"] = \
-                    fn.launches
-        launches = {fn.__name__: fn.launches for fn in counted
-                    if fn.launches}
+                    launch_count(fn)
+        launches = {fn.__name__: launch_count(fn) for fn in counted
+                    if launch_count(fn)}
         check(launches == {"mghs_pool_cuda": DDP_STEPS,
                            "pool_plan_cuda": DDP_STEPS},
               f"ddp train: launches {launches}")

@@ -77,14 +77,13 @@ def _print_profile(prof: Dict, module_substr: str, n_ops: int) -> None:
 
 
 def _profile(args, step: Callable[[], object], dev: torch.device) -> None:
-    """Trace a few more calls of ``step``, each a range named 'step'."""
-    from torch.profiler import record_function
-
-    from dhd_tpu_torch.profiling import trace_device
+    """Trace a few more calls of ``step``, each a span named 'step' (with
+    the model's own spans inside it)."""
+    from dhd_tpu_torch.profiling import span, trace_device
 
     def run():
         for _ in range(min(args.iters, 6)):
-            with record_function("step"):
+            with span("step"):
                 step()
     _print_profile(trace_device(run, dev, collapse=not args.profile_detail),
                    "step", args.profile_ops)
@@ -109,6 +108,21 @@ def _model(cfg, dt, dev):
                        generator=torch.Generator().manual_seed(0))
 
 
+def _print_setup() -> None:
+    """The set-up spans so far (``profiling.span(..., always=True)``),
+    seconds summed by name, and the kernel builds and loads."""
+    from dhd_tpu_torch.profiling import counters, spans
+    total: Dict[str, float] = {}
+    for name, _, t0, t1 in spans():
+        if name.startswith("setup."):
+            total[name] = total.get(name, 0.0) + (t1 - t0) / 1e9
+    c = counters()
+    print("set-up: " + ", ".join(f"{k.removeprefix('setup.')} {v:.3f} s"
+                                 for k, v in total.items())
+          + f"; kernel loads {c.get('kernel_loads', 0)}, builds "
+          f"{c.get('kernel_builds', 0)}")
+
+
 def _key_frame(cfg, batch: Dict[str, np.ndarray], keys) -> Dict:
     """The key frame's arrays of a (frames-major, if temporal) batch."""
     return {k: batch[k][:, 0] if cfg.temporal and k != "bda" else batch[k]
@@ -129,6 +143,7 @@ def run_full(args, cfg, dt, dev, batch) -> None:
     s = timed_s(step, args.iters, dev)
     print(f"{args.preset} end-to-end: {s * 1e3:.2f} ms/iter "
           f"= {args.batch_size / s:.1f} samples/s")
+    _print_setup()
     if args.profile:
         _profile(args, step, dev)
 
@@ -160,6 +175,7 @@ def run_stream(args, cfg, dt, dev, batch) -> None:
     s = timed_s(step, args.iters, dev)
     print(f"{args.preset} streaming inference: {s * 1e3:.2f} ms/iter = "
           f"{args.batch_size / s:.1f} samples/s")
+    _print_setup()
     if args.profile:
         _profile(args, step, dev)
 
@@ -345,10 +361,9 @@ def run_train(args, cfg, dt, dev, batch) -> None:
     port has no FLOP count of the train step.
     ``--pool-plan`` ships a plan built once (single-frame presets: a
     temporal model pools each frame with its own geometry)."""
-    from torch.profiler import record_function
-
     from dhd_tpu_torch.data import synthetic_batch
-    from dhd_tpu_torch.profiling import kernel_launches, top_ops, trace_device
+    from dhd_tpu_torch.profiling import (kernel_launches, span, top_ops,
+                                         trace_device)
     from dhd_tpu_torch.train import AdamWSchedule, ModelEMA, train_step
     tbatch = {k: torch.as_tensor(v, device=dev)
               for k, v in synthetic_batch(cfg, args.batch_size, seed=0,
@@ -396,7 +411,7 @@ def run_train(args, cfg, dt, dev, batch) -> None:
              "versions)"))
 
     def run():
-        with record_function("train_step"):
+        with span("train_step"):
             step()
     prof = trace_device(run, dev, collapse=not args.profile_detail)
     busy = sum(prof["ops"].values())

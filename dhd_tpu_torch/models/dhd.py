@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.config import ModelConfig, ViewTransformConfig
 from dhd_tpu_torch.device import device_constant, resolve_device
 from dhd_tpu_torch.geometry import (create_frustum, frustum_to_ego,
@@ -132,13 +133,14 @@ def build_batch_pool_plan(cfg: ModelConfig, batch: Dict[str, Any],
     and passes it as ``batch["pool_plan"]`` with every frame.
     """
     device = resolve_device(device)
-    geom = {k: _as_tensor(batch[k], device, torch.float32)
-            for k in GEOM_KEYS}
-    vt = cfg.vt
-    b, n = geom["sensor2keyego"].shape[:2]
-    fh, fw = vt.feat_size
-    return build_pool_plan(_pool_indices(cfg, geom), vt,
-                           (b, n, vt.D, fh, fw), fit_scratch=True)
+    with profiling.span("setup.pool_plan", always=True):
+        geom = {k: _as_tensor(batch[k], device, torch.float32)
+                for k in GEOM_KEYS}
+        vt = cfg.vt
+        b, n = geom["sensor2keyego"].shape[:2]
+        fh, fw = vt.feat_size
+        return build_pool_plan(_pool_indices(cfg, geom), vt,
+                               (b, n, vt.D, fh, fw), fit_scratch=True)
 
 
 class MGHSTransform(nn.Module):
@@ -356,8 +358,9 @@ class DHDNet(nn.Module):
             c, cz = vt.out_channels, vt.out_channels * vt.z_fine.size
             self.pre_process_net = CustomResNet(c, (c,), (1,), (1,))
             self.pre_process_net_3d = CustomResNet(cz, (cz,), (1,), (1,))
-        init_weights(self, generator if generator is not None
-                     else torch.Generator().manual_seed(0))
+        with profiling.span("setup.init_weights", always=True):
+            init_weights(self, generator if generator is not None
+                         else torch.Generator().manual_seed(0))
         self.eval()
         self.to(device=device, dtype=dtype)
 
@@ -401,14 +404,15 @@ class DHDNet(nn.Module):
         and, for a stereo model, the stride-4 stereo feature (the only
         output with ``stage0_only``).  ``generator`` draws the Swin's
         DropPath masks in training."""
-        feats = self.img_backbone(imgs, stage0_only=stage0_only,
-                                  generator=generator)
-        if stage0_only:
-            return None, feats
-        stereo_feat = None
-        if self.cfg.stereo:
-            stereo_feat, feats = feats[0], feats[1:]
-        return self.img_neck(feats), stereo_feat
+        with profiling.span("encode"):
+            feats = self.img_backbone(imgs, stage0_only=stage0_only,
+                                      generator=generator)
+            if stage0_only:
+                return None, feats
+            stereo_feat = None
+            if self.cfg.stereo:
+                stereo_feat, feats = feats[0], feats[1:]
+            return self.img_neck(feats), stereo_feat
 
     def _fuse_and_predict(self, bev: torch.Tensor, vox: torch.Tensor):
         """BEV encoder || slab UNets -> SFA -> occupancy head.
@@ -416,22 +420,23 @@ class DHDNet(nn.Module):
         bev (B, Dy, Dx, C'), vox (B, Dy, Dx, Dz, C') ->
         occ_logits (B, Dx, Dy, Dz, n_cls) and the packed
         (B, Dx, Dy, Dz*n_cls), fp32."""
-        cfg = self.cfg
-        bev = bev.permute(0, 3, 1, 2)
-        x_2d = self.img_bev_encoder_backbone(bev)
-        if cfg.bev_encoder == "custom_resnet":
-            x_2d = self.img_bev_encoder_neck(x_2d)
-        s1, s2, _ = cfg.vt.slab_sizes          # vox z-minor
-        slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
-                 vox[..., s1 + s2:, :])
-        x_3d = torch.cat([
-            getattr(self, f"img_voxel_encoder{k}")(
-                collapse_z(slab).permute(0, 3, 1, 2))
-            for k, slab in enumerate(slabs)], dim=1)
-        fused = self.mix(torch.cat([x_2d, x_3d], dim=1))
-        occ = self.occ_head(fused).float()     # packed (B, Dx, Dy, Dz*n_cls)
-        return (occ.reshape(occ.shape[:3] + (cfg.head_Dz, cfg.num_classes)),
-                occ)
+        with profiling.span("head"):
+            cfg = self.cfg
+            bev = bev.permute(0, 3, 1, 2)
+            x_2d = self.img_bev_encoder_backbone(bev)
+            if cfg.bev_encoder == "custom_resnet":
+                x_2d = self.img_bev_encoder_neck(x_2d)
+            s1, s2, _ = cfg.vt.slab_sizes          # vox z-minor
+            slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
+                     vox[..., s1 + s2:, :])
+            x_3d = torch.cat([
+                getattr(self, f"img_voxel_encoder{k}")(
+                    collapse_z(slab).permute(0, 3, 1, 2))
+                for k, slab in enumerate(slabs)], dim=1)
+            fused = self.mix(torch.cat([x_2d, x_3d], dim=1))
+            occ = self.occ_head(fused).float()  # (B, Dx, Dy, Dz*n_cls)
+            return (occ.reshape(occ.shape[:3]
+                                + (cfg.head_Dz, cfg.num_classes)), occ)
 
     def forward(self, batch: Dict[str, Any],
                 generator: Optional[torch.Generator] = None
@@ -450,8 +455,8 @@ class DHDNet(nn.Module):
           occ_logits (B, Dx, Dy, Dz, n_cls), occ_logits_flat
           (B, Dx, Dy, Dz*n_cls), depth and height distributions; fp32.
         """
-        with torch.set_grad_enabled(self.training
-                                    and torch.is_grad_enabled()):
+        with profiling.span("forward"), torch.set_grad_enabled(
+                self.training and torch.is_grad_enabled()):
             return self._single_frame(batch, generator)
 
     def _single_frame(self, batch, generator):
@@ -461,9 +466,10 @@ class DHDNet(nn.Module):
             imgs.permute(0, 1, 4, 2, 3).reshape(b * n, 3, h, w),
             generator=generator)
         x = x.reshape((b, n) + x.shape[1:])
-        vt_out = self.img_view_transformer(x, self._geom(batch),
-                                           batch.get("pool_plan"),
-                                           generator=generator)
+        with profiling.span("view_transform"):
+            vt_out = self.img_view_transformer(x, self._geom(batch),
+                                               batch.get("pool_plan"),
+                                               generator=generator)
         occ, occ_flat = self._fuse_and_predict(vt_out["bev"], vt_out["vox"])
         return {"occ_logits": occ, "occ_logits_flat": occ_flat,
                 "depth": vt_out["depth"], "height": vt_out["height"]}

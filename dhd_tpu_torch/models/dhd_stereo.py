@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.config import GridConfig, ModelConfig
 from dhd_tpu_torch.device import device_constant, resolve_device
 from dhd_tpu_torch.geometry import (create_frustum, inverse_3x3,
@@ -150,12 +151,14 @@ def build_stream_cv_static(cfg: ModelConfig, batch: Dict[str, Any],
     :func:`~dhd_tpu_torch.ops.cv_plan_from_static`."""
     device = resolve_device(device)
     vt = cfg.vt
-    frustum = create_frustum(vt.depth, vt.input_size, 4, vt.sid,
-                             device=device)
-    hs, ws = vt.input_size[0] // 4, vt.input_size[1] // 4
-    return build_cv_static(
-        frustum, *(_as_tensor(batch[k], device, torch.float32)
-                   for k in ("intrins", "post_rots", "post_trans")), hs, ws)
+    with profiling.span("setup.cv_static", always=True):
+        frustum = create_frustum(vt.depth, vt.input_size, 4, vt.sid,
+                                 device=device)
+        hs, ws = vt.input_size[0] // 4, vt.input_size[1] // 4
+        return build_cv_static(
+            frustum, *(_as_tensor(batch[k], device, torch.float32)
+                       for k in ("intrins", "post_rots", "post_trans")),
+            hs, ws)
 
 
 class DHDStereoNet(DHDNet):
@@ -182,15 +185,17 @@ class DHDStereoNet(DHDNet):
         :func:`build_stream_cv_static`."""
         cfg = self.cfg
         bn, hs, ws, cs = sf.shape
-        if prev_sf is None:
-            return torch.zeros((bn, cfg.vt.D, hs, ws), dtype=self.dtype,
-                               device=self.device)
-        cv = stereo_cost_volume(
-            prev_sf.reshape(b, n, hs, ws, cs), sf.reshape(b, n, hs, ws, cs),
-            self._cv_frustum, k2s, geom["intrins"], geom["post_rots"],
-            geom["post_trans"], bias=cfg.depthnet_cfg.bias,
-            method=cfg.cv_method, static=static)
-        return cv.reshape(bn, -1, hs, ws).to(self.dtype)
+        with profiling.span("cost_volume"):
+            if prev_sf is None:
+                return torch.zeros((bn, cfg.vt.D, hs, ws), dtype=self.dtype,
+                                   device=self.device)
+            cv = stereo_cost_volume(
+                prev_sf.reshape(b, n, hs, ws, cs),
+                sf.reshape(b, n, hs, ws, cs), self._cv_frustum, k2s,
+                geom["intrins"], geom["post_rots"], geom["post_trans"],
+                bias=cfg.depthnet_cfg.bias, method=cfg.cv_method,
+                static=static)
+            return cv.reshape(bn, -1, hs, ws).to(self.dtype)
 
     def _frame(self, imgs: torch.Tensor, geom: Dict[str, torch.Tensor],
                prev_sf: Optional[torch.Tensor],
@@ -210,8 +215,9 @@ class DHDStereoNet(DHDNet):
         if self.cfg.stereo:
             sf = sfeat.permute(0, 2, 3, 1).contiguous()
             cv = self._cost_volume(prev_sf, sf, k2s, geom, b, n, cv_static)
-        out = self.img_view_transformer(
-            x.reshape((b, n) + x.shape[1:]), geom, plan, cv, generator)
+        with profiling.span("view_transform"):
+            out = self.img_view_transformer(
+                x.reshape((b, n) + x.shape[1:]), geom, plan, cv, generator)
         out["bev"], out["vox"] = self._pre_process(out["bev"], out["vox"])
         return out, sf
 
@@ -220,10 +226,13 @@ class DHDStereoNet(DHDNet):
         over the BEV grid (DHD_model.py:360-368)."""
         if not self.cfg.pre_process:
             return bev, vox
-        bev = self.pre_process_net(bev.permute(0, 3, 1, 2))[0]
-        vz = self.pre_process_net_3d(collapse_z(vox).permute(0, 3, 1, 2))[0]
-        return (bev.permute(0, 2, 3, 1),
-                uncollapse_z(vz.permute(0, 2, 3, 1), self.cfg.vt.z_fine.size))
+        with profiling.span("pre_process"):
+            bev = self.pre_process_net(bev.permute(0, 3, 1, 2))[0]
+            vz = self.pre_process_net_3d(
+                collapse_z(vox).permute(0, 3, 1, 2))[0]
+            return (bev.permute(0, 2, 3, 1),
+                    uncollapse_z(vz.permute(0, 2, 3, 1),
+                                 self.cfg.vt.z_fine.size))
 
     def _outputs(self, bev, vox, depth, height) -> Dict[str, torch.Tensor]:
         occ, occ_flat = self._fuse_and_predict(bev, vox)
@@ -240,8 +249,8 @@ class DHDStereoNet(DHDNet):
         volume and zero previous grids (the SequentialControlHook's early
         epochs).  Outputs, grad mode and ``generator`` as
         :meth:`DHDNet.forward`."""
-        with torch.set_grad_enabled(self.training
-                                    and torch.is_grad_enabled()):
+        with profiling.span("forward"), torch.set_grad_enabled(
+                self.training and torch.is_grad_enabled()):
             if cache is not None:
                 return self._streaming(batch, cache, generator)
             return self._frames(batch, with_prev, generator)
@@ -274,12 +283,13 @@ class DHDStereoNet(DHDNet):
         else:
             # warp the cached grids from the previous ego frame into the
             # current one (shift_feature, bevdet4d.py:118-134)
-            prev_s2k_front = rigid_relative(e2g[:, 0], prev_c2g[:, 0])
-            grid = shift_grid(vt.y.size, vt.x.size, s2k[:, 0],
-                              prev_s2k_front, geom["bda"], vt.x, vt.y)
-            prev_bev = grid_sample_2d(cache["bev"], grid)
-            prev_vox = uncollapse_z(
-                grid_sample_2d(collapse_z(cache["vox"]), grid), dz)
+            with profiling.span("history_warp"):
+                prev_s2k_front = rigid_relative(e2g[:, 0], prev_c2g[:, 0])
+                grid = shift_grid(vt.y.size, vt.x.size, s2k[:, 0],
+                                  prev_s2k_front, geom["bda"], vt.x, vt.y)
+                prev_bev = grid_sample_2d(cache["bev"], grid)
+                prev_vox = uncollapse_z(
+                    grid_sample_2d(collapse_z(cache["vox"]), grid), dz)
         outputs = self._outputs(torch.cat([prev_bev, bev], dim=-1),
                                 torch.cat([prev_vox, vox], dim=-1),
                                 out["depth"], out["height"])

@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 
 _FN = {torch.bfloat16: "stereo_cost_bf16", torch.float32: "stereo_cost_f32"}
@@ -100,9 +101,9 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
       (BN, D, Hs, Ws) fp32 cost.
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
-    CPU takes the plain version.  ``stereo_cost_volume_cuda.launches``
-    counts kernel launches.  A trace (``torch.export``) records the launch
-    as the custom op ``dhd_tpu_torch::stereo_cost``.
+    CPU takes the plain version.  ``profiling.kernel_launches()``
+    counts its kernel launches.  A trace (``torch.export``) records the
+    launch as the custom op ``dhd_tpu_torch::stereo_cost``.
     """
     if prev.device.type == "cpu":
         return cv_cost_plain(prev, curr, uf, vf, bias)
@@ -133,8 +134,6 @@ def stereo_cost_volume_cuda(prev: torch.Tensor, curr: torch.Tensor,
     return _stereo_cost(prev, curr, uf, vf, float(bias))
 
 
-stereo_cost_volume_cuda.launches = 0
-
 
 def _launch(prev: torch.Tensor, curr: torch.Tensor, uf: torch.Tensor,
             vf: torch.Tensor, bias: float) -> torch.Tensor:
@@ -148,6 +147,7 @@ def _launch(prev: torch.Tensor, curr: torch.Tensor, uf: torch.Tensor,
                        device=prev.device)
     if cost.numel() == 0:
         return cost
+    profiling.mark("cost_volume_kernel")
     err = _entry(prev.dtype)(
         prev.data_ptr(), curr.data_ptr(), uf.data_ptr(), vf.data_ptr(),
         cost.data_ptr(), bn, d, hs, ws, c, bias,
@@ -155,7 +155,7 @@ def _launch(prev: torch.Tensor, curr: torch.Tensor, uf: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"cost_volume kernel launch failed: CUDA error {err}")
-    stereo_cost_volume_cuda.launches += 1
+    profiling.count("stereo_cost_volume_cuda")
     return cost
 
 

@@ -19,6 +19,8 @@ from typing import Callable, Dict, Iterable
 
 import torch
 
+from dhd_tpu_torch import profiling
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "dhd_tpu_torch"
@@ -44,8 +46,9 @@ def _lib_path(name: str) -> Path:
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named sources that are not built yet, in parallel.
-    Returns nvcc's output (registers, shared memory, spills) by name."""
+    """Compile the named sources that are not built yet, in parallel,
+    each nvcc run counted under ``kernel_builds``.  Returns nvcc's output
+    (registers, shared memory, spills) by name."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -57,6 +60,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
+        profiling.count("kernel_builds")
     logs = {}
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -68,10 +72,14 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    """The built library for ``csrc/<name>.cu``, building it if needed;
+    the first load in the process is the set-up span
+    ``setup.kernel_load`` and counts under ``kernel_loads``."""
     if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        with profiling.span("setup.kernel_load", always=True):
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        profiling.count("kernel_loads")
     return _loaded[name]
 
 

@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 
 _FN = {torch.bfloat16: "layer_norm_bf16", torch.float32: "layer_norm_f32"}
@@ -66,7 +67,7 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
       (..., C) in x.dtype.
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
-    CPU takes the plain version.  ``fused_layer_norm_cuda.launches`` counts
+    CPU takes the plain version.  ``profiling.kernel_launches()`` counts its
     kernel launches.  A trace (``torch.export``) records the launch as the
     custom op ``dhd_tpu_torch::layer_norm``, which an exported program
     runs on the card.
@@ -95,8 +96,6 @@ def fused_layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return _layer_norm(x, weight, bias, eps)
 
 
-fused_layer_norm_cuda.launches = 0
-
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             eps: float) -> torch.Tensor:
@@ -108,6 +107,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     n, c = x.numel(), x.shape[-1]
     if n == 0:
         return out
+    profiling.mark("layer_norm_kernel")
     err = _entry(x.dtype)(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                           out.data_ptr(), n // c, c, eps,
                           torch._C._cuda_getCurrentRawStream(
@@ -115,7 +115,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error "
                            f"{err}")
-    fused_layer_norm_cuda.launches += 1
+    profiling.count("fused_layer_norm_cuda")
     return out
 
 

@@ -32,6 +32,7 @@ from typing import List, Tuple
 
 import torch
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 from dhd_tpu_torch.ops.grad_mode import records_grad
 from dhd_tpu_torch.ops.voxel_pool import PoolPlan, sorted_tables
@@ -95,7 +96,7 @@ def pool_plan_cuda(key_s: torch.Tensor, order: torch.Tensor,
     ``csrc/mghs_pool.cu`` (three launches, one host call) or raises; a
     tensor on the CPU takes :func:`pool_plan_plain`.  Nothing is read back
     to the host, so a frame that plans in the call does not wait.
-    ``pool_plan_cuda.launches`` counts host calls.  A trace
+    ``profiling.kernel_launches()`` counts its host calls.  A trace
     (``torch.export``) records the call as the custom op
     ``dhd_tpu_torch::pool_plan``.
     """
@@ -145,6 +146,7 @@ def _plan_launch(key_s: torch.Tensor, order: torch.Tensor,
     parts = _plan_parts(n_pillars, p, piece)
     out = torch.empty(sum(parts), dtype=torch.int32, device=key_s.device)
     tasks, splits, dix_s, z_s, starts, counts = out.split(parts)
+    profiling.mark("plan_points_kernel")
     err = _entry("plan")(
         key_s.data_ptr(), order.data_ptr(), seg_vox.data_ptr(), p, n_pillars,
         dz, num_seg_vox, d, hw, piece, dix_s.data_ptr(), z_s.data_ptr(),
@@ -153,7 +155,7 @@ def _plan_launch(key_s: torch.Tensor, order: torch.Tensor,
         torch._C._cuda_getCurrentRawStream(key_s.get_device()))
     if err != 0:
         raise RuntimeError(f"mghs_pool plan launch failed: CUDA error {err}")
-    pool_plan_cuda.launches += 1
+    profiling.count("pool_plan_cuda")
     return out
 
 
@@ -163,8 +165,6 @@ _pool_plan = kernel_op(
     key_s.new_empty((sum(_plan_parts(num_seg_vox // dz, key_s.numel(),
                                      piece)),), dtype=torch.int32))
 
-
-pool_plan_cuda.launches = 0
 
 
 def pool_plan_plain(key_s: torch.Tensor, order: torch.Tensor,
@@ -308,10 +308,10 @@ def mghs_pool_cuda(depth: torch.Tensor, feat: torch.Tensor,
       bev (B, Dy, Dx, C) and vox (B, Dy, Dx, Dz, C) in feat.dtype.
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
-    CPU takes the plain version.  ``mghs_pool_cuda.launches`` counts kernel
-    launches.  A trace (``torch.export``) records the launch as the custom
-    op ``dhd_tpu_torch::mghs_pool``.  Where autograd records the call, the
-    result is differentiable in ``depth`` and ``feat``
+    CPU takes the plain version.  ``profiling.kernel_launches()`` counts
+    its kernel launches.  A trace (``torch.export``) records the launch as
+    the custom op ``dhd_tpu_torch::mghs_pool``.  Where autograd records the
+    call, the result is differentiable in ``depth`` and ``feat``
     (:class:`_MGHSPool`); ``band_mask`` and the plan get no gradient, as in
     JAX, where the gate is a hard select.
     """
@@ -319,8 +319,6 @@ def mghs_pool_cuda(depth: torch.Tensor, feat: torch.Tensor,
         return _MGHSPool.apply(depth, feat, band_mask, plan)
     return _forward(depth, feat, band_mask, plan)
 
-
-mghs_pool_cuda.launches = 0
 
 
 def _forward(depth: torch.Tensor, feat: torch.Tensor,
@@ -385,6 +383,7 @@ def _launch(depth: torch.Tensor, feat: torch.Tensor, band_mask: torch.Tensor,
     # fp32 partial blocks (Dz vox rows and a bev row) of split pillars
     scratch = torch.empty(n_slots * (dz + 1) * c, dtype=torch.float32,
                           device=feat.device)
+    profiling.mark("mghs_pool_kernel")
     err = _entry(feat.dtype)(
         depth.data_ptr(), feat.data_ptr(), band_mask.data_ptr(),
         dix_s.data_ptr(), z_s.data_ptr(), tasks.data_ptr(),
@@ -394,7 +393,7 @@ def _launch(depth: torch.Tensor, feat: torch.Tensor, band_mask: torch.Tensor,
         torch._C._cuda_getCurrentRawStream(feat.get_device()))
     if err != 0:
         raise RuntimeError(f"mghs_pool kernel launch failed: CUDA error {err}")
-    mghs_pool_cuda.launches += 1
+    profiling.count("mghs_pool_cuda")
     return bev, vox
 
 

@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.ops.cuda_build import load
 
 _NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -99,7 +100,7 @@ def sorted_segment_sum(vals: torch.Tensor, seg_sorted: torch.Tensor,
       (V, C) sums in ``out_dtype``; empty segments are exactly zero.
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
-    CPU takes the plain version.  ``sorted_segment_sum.launches`` counts
+    CPU takes the plain version.  ``profiling.kernel_launches()`` counts its
     kernel launches.
     """
     if vals.device.type == "cpu":
@@ -137,6 +138,7 @@ def sorted_segment_sum(vals: torch.Tensor, seg_sorted: torch.Tensor,
     shares = -(-(p + num_segments) // _items())
     scratch = torch.empty(shares * (2 * c + 2), dtype=torch.float32,
                           device=vals.device)
+    profiling.mark("segment_sum_share_kernel")
     err = _entry(vals.dtype, out_dtype)(
         vals.data_ptr(), seg_sorted.data_ptr(),
         order.data_ptr() if order is not None else None, out.data_ptr(),
@@ -145,11 +147,9 @@ def sorted_segment_sum(vals: torch.Tensor, seg_sorted: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"segment_sum kernel launch failed: CUDA error {err}")
-    sorted_segment_sum.launches += 1
+    profiling.count("sorted_segment_sum")
     return out
 
-
-sorted_segment_sum.launches = 0
 
 
 class _SegmentSumPooling(torch.autograd.Function):

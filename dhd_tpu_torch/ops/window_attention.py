@@ -35,10 +35,14 @@ from typing import Optional
 
 import torch
 
+from dhd_tpu_torch import profiling
 from dhd_tpu_torch.ops.cuda_build import kernel_op, load
 
 _FN = {torch.bfloat16: "window_attention_bf16",
        torch.float32: "window_attention_f32"}
+# the kernel each entry launches, by its name in a device trace
+_KERNEL = {torch.bfloat16: "window_attention_mma_kernel",
+           torch.float32: "window_attention_kernel"}
 _HEAD_DIMS = (16, 32)
 _MAX_N = 256                    # window 16
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -100,7 +104,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
       (W, N, C) attention output before the projection, qkv's dtype.
 
     On a CUDA tensor this launches the kernel or raises; a tensor on the
-    CPU takes the plain version.  ``window_attention_cuda.launches`` counts
+    CPU takes the plain version.  ``profiling.kernel_launches()`` counts its
     kernel launches.  A trace (``torch.export``) records the launch as the
     custom op ``dhd_tpu_torch::window_attention``.
     """
@@ -135,8 +139,6 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     return _window_attention(qkv, bias, mask, heads)
 
 
-window_attention_cuda.launches = 0
-
 
 def _launch(qkv: torch.Tensor, bias: torch.Tensor,
             mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
@@ -149,6 +151,7 @@ def _launch(qkv: torch.Tensor, bias: torch.Tensor,
     if out.numel() == 0:
         return out
     index = qkv.get_device()
+    profiling.mark(_KERNEL[dt])
     err = _entry(dt)(qkv.data_ptr(), bias.data_ptr(),
                      0 if mask is None else mask.data_ptr(), out.data_ptr(),
                      w, n, c, heads, 0 if mask is None else mask.shape[0],
@@ -157,7 +160,7 @@ def _launch(qkv: torch.Tensor, bias: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"window_attention kernel launch failed: CUDA "
                            f"error {err}")
-    window_attention_cuda.launches += 1
+    profiling.count("window_attention_cuda")
     return out
 
 

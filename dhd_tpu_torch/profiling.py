@@ -1,6 +1,30 @@
-"""Profiling helpers built on ``torch.profiler``: counterpart of
-``dhd_tpu/profiling.py``, with the same three functions and the same
+"""Profiling of the port: its own spans, launch marks and counters, and
+helpers built on ``torch.profiler``; counterpart of
+``dhd_tpu/profiling.py``, with the same three trace functions and the same
 return shape.
+
+The program records three things here:
+
+* spans (:func:`span`): named, nested intervals of its served frame
+  (``forward``, ``encode``, ``cost_volume`` ...), recorded only while a
+  ``torch.profiler`` runs, and its one-shot set-up (``setup.*``), recorded
+  always.  A span under a profiler also opens a ``record_function`` of its
+  name, so that a trace of the host's side shows it;
+* launch marks (:func:`mark`): the host time just before each launch of
+  the port's CUDA kernels, under the kernel's name, while a profiler runs.
+  A device trace holds every kernel's name and start, so the k-th kernel
+  of a name against the k-th mark of that name puts the spans on the
+  device's timeline;
+* counters (:func:`count`), always on: each kernel wrapper's launches
+  (:func:`kernel_launches`), ``kernel_builds`` (nvcc runs) and
+  ``kernel_loads``.
+
+Times are ``time.time_ns()``, the host clock of the profiler's own events.
+The records are the process's, as a profiler's are: a span's depth counts
+the spans open around it, so spans nest as they should from one thread,
+the one that serves.  They are bounded; what comes past the bound is
+counted under ``records_dropped``.  Off (no profiler), a span costs one
+check of a bool.
 
 A traced run gives each named range's time per execution (the ranges are
 ``torch.profiler.record_function`` blocks of the traced code) and the time
@@ -11,14 +35,122 @@ host's, which the result says under ``clock``.
 from __future__ import annotations
 
 import re
+import time
 from collections import defaultdict
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 _TEMPLATE = re.compile(r"<[^<>]*>")
+MAX_RECORDS = 1 << 16           # spans, and launch marks, kept at most
+# the kernel wrappers, whose launches the counters hold under these names
+KERNEL_WRAPPERS = ("mghs_pool_cuda", "pool_plan_cuda", "sorted_segment_sum",
+                   "stereo_cost_volume_cuda", "window_attention_cuda",
+                   "fused_layer_norm_cuda")
+
+_spans: List[Tuple[str, int, int, int]] = []
+_marks: List[Tuple[str, int]] = []
+_counters: Dict[str, int] = defaultdict(int)
+_depth = 0
+
+
+class _Span:
+    """One open span: its slot in the record, filled when it closes."""
+    __slots__ = ("name", "slot", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _depth
+        self.slot = len(_spans)
+        if self.slot < MAX_RECORDS:
+            _spans.append((self.name, _depth, 0, 0))
+        else:
+            self.slot = -1
+            _counters["records_dropped"] += 1
+        _depth += 1
+        # the span holds its range: times outside record_function's calls
+        self.t0 = time.time_ns()
+        self.rf = None
+        if (_autograd_profiler._is_profiler_enabled
+                and not torch.compiler.is_compiling()):
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        global _depth
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        t1 = time.time_ns()
+        _depth -= 1
+        if self.slot >= 0:
+            _spans[self.slot] = (self.name, _depth, self.t0, t1)
+        return False
+
+
+class _Off:
+    """The span of a frame with no profiler running: a context manager
+    that does nothing.  Its enter and exit are a C function (``str.format``
+    of the empty string, which returns a false ``""`` whatever it is
+    given), so entering and leaving it runs no Python frame."""
+    __slots__ = ()
+    __enter__ = __exit__ = "".format
+
+
+_OFF = _Off()
+
+
+def span(name: str, always: bool = False):
+    """A context manager that records ``(name, depth, t0_ns, t1_ns)`` and
+    opens ``record_function(name)`` while a profiler runs, and does nothing
+    otherwise; with ``always`` (one-shot set-up) it records without a
+    profiler too."""
+    if always or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+def mark(kernel: str) -> None:
+    """Record ``(kernel, t_ns)`` while a profiler runs: called just before
+    the launch of the kernel of that name (its name in a device trace)."""
+    if _autograd_profiler._is_profiler_enabled:
+        if len(_marks) < MAX_RECORDS:
+            _marks.append((kernel, time.time_ns()))
+        else:
+            _counters["records_dropped"] += 1
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counters[name] += n
+
+
+def spans() -> List[Tuple[str, int, int, int]]:
+    """The spans recorded, ``(name, depth, t0_ns, t1_ns)`` in the order
+    they opened; depth 0 is outermost."""
+    return list(_spans)
+
+
+def launch_marks() -> List[Tuple[str, int]]:
+    """The launch marks recorded, ``(kernel name, t_ns)`` in time order."""
+    return list(_marks)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter, by name."""
+    return dict(_counters)
+
+
+def reset() -> None:
+    """Forget every span, mark and counter."""
+    _spans.clear()
+    _marks.clear()
+    _counters.clear()
 
 
 def _kernel_key(name: str, collapse: bool) -> str:
@@ -37,16 +169,7 @@ def kernel_launches() -> Dict[str, int]:
     """The launch counters of the CUDA kernels' wrappers, by name: B1
     (``mghs_pool_cuda``) and its plan (``pool_plan_cuda``), B2, B3, B4 and
     B5.  A wrapper counts only where it launches its kernel."""
-    from dhd_tpu_torch.ops import (fused_layer_norm_cuda, mghs_pool_cuda,
-                                   sorted_segment_sum,
-                                   stereo_cost_volume_cuda,
-                                   window_attention_cuda)
-    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
-
-    return {fn.__name__: fn.launches
-            for fn in (mghs_pool_cuda, pool_plan_cuda, sorted_segment_sum,
-                       stereo_cost_volume_cuda, window_attention_cuda,
-                       fused_layer_norm_cuda)}
+    return {name: _counters.get(name, 0) for name in KERNEL_WRAPPERS}
 
 
 def trace_device(run: Callable[[], None], device: torch.device,

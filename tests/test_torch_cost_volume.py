@@ -25,6 +25,7 @@ from dhd_tpu_torch.geometry import (create_frustum, inverse_3x3,
 from dhd_tpu_torch.ops import (build_cv_plan, cv_cost_plain, grid_sample_2d,
                                stereo_cost_volume, stereo_cost_volume_cuda,
                                stereo_reproject_grid)
+from dhd_tpu_torch.profiling import kernel_launches
 
 T = torch.from_numpy
 
@@ -257,9 +258,9 @@ def test_cuda_wrapper_on_cpu_is_the_plain_version():
                                     post_trans)), 16, 24)
     p = T(prev).reshape(2, 16, 24, 8).to(torch.bfloat16)
     c = T(curr).reshape(2, 16, 24, 8).to(torch.bfloat16)
-    before = stereo_cost_volume_cuda.launches
+    before = kernel_launches()["stereo_cost_volume_cuda"]
     got = stereo_cost_volume_cuda(p, c, uf, vf, 5.0)
-    assert stereo_cost_volume_cuda.launches == before
+    assert kernel_launches()["stereo_cost_volume_cuda"] == before
     assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 24)
     # bf16 features are upcast before the warp
     torch.testing.assert_close(got, cv_cost_plain(p.float(), c.float(), uf,

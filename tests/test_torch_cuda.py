@@ -17,6 +17,7 @@ from dhd_tpu_torch.ops import (build_cv_plan, build_pool_plan,
                                sorted_segment_sum_plain,
                                stereo_cost_volume_cuda, window_attention_cuda,
                                window_attention_plain)
+from dhd_tpu_torch.profiling import kernel_launches
 
 pytestmark = pytest.mark.cuda
 
@@ -54,9 +55,9 @@ def test_mghs_pool_kernel_matches_plain(cuda, dtype):
     """fp32 within 1e-5; bf16 within one bf16 ulp (2^-7 relative): only
     the fp32 summation order differs."""
     args, plan = _pool_inputs(cuda, dtype)
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     got = mghs_pool_cuda(*args, plan)
-    assert mghs_pool_cuda.launches == before + 1
+    assert kernel_launches()["mghs_pool_cuda"] == before + 1
     want = mghs_pool_plan_plain(*args, plan)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -76,7 +77,7 @@ def test_mghs_pool_bf16_gradients_on_the_card(cuda):
     args, plan = _pool_inputs(cuda, torch.bfloat16)
     weights = [None, None]
     grads = {}
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     for dt in (torch.bfloat16, torch.float32):
         depth, feat = (a.to(dt, copy=True).requires_grad_(True)
                        for a in args[:2])
@@ -89,7 +90,7 @@ def test_mghs_pool_bf16_gradients_on_the_card(cuda):
                 ).to(cuda, torch.bfloat16)
         sum((o * w.to(dt)).sum() for o, w in zip(out, weights)).backward()
         grads[dt] = (depth.grad, feat.grad)
-    assert mghs_pool_cuda.launches == before + 2
+    assert kernel_launches()["mghs_pool_cuda"] == before + 2
     for g16, g32 in zip(grads[torch.bfloat16], grads[torch.float32]):
         assert g16.dtype == torch.bfloat16 and g32.dtype == torch.float32
         tol = 2 ** -7 * g32.abs() + 2 ** -20 * float(g32.abs().max())
@@ -99,14 +100,14 @@ def test_mghs_pool_bf16_gradients_on_the_card(cuda):
 
 def test_mghs_pool_kernel_rejects_bad_inputs(cuda):
     (depth, feat, band_mask), plan = _pool_inputs(cuda, torch.float32)
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     with pytest.raises(ValueError, match="depth"):
         mghs_pool_cuda(depth.transpose(0, 1), feat, band_mask, plan)
     with pytest.raises(ValueError, match="band_mask"):
         mghs_pool_cuda(depth, feat, band_mask.double(), plan)
     with pytest.raises(TypeError):
         mghs_pool_cuda(depth.half(), feat.half(), band_mask.half(), plan)
-    assert mghs_pool_cuda.launches == before
+    assert kernel_launches()["mghs_pool_cuda"] == before
 
 
 POOL_LAYOUTS = ("uniform", "uniform_piece8", "hot", "one_row", "none",
@@ -192,9 +193,9 @@ def _assert_pool_close(got, want, terms, dtype):
 def test_mghs_pool_kernel_layouts(cuda, dtype, layout):
     """Each layout against the plain version; the empty ones exactly 0."""
     args, plan = _pool_case(cuda, dtype, layout)
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     got = mghs_pool_cuda(*args, plan)
-    assert mghs_pool_cuda.launches == before + 1
+    assert kernel_launches()["mghs_pool_cuda"] == before + 1
     want = mghs_pool_plan_plain(*args, plan)
     terms = mghs_pool_plan_plain(args[0], args[1].abs(), args[2], plan)
     torch.cuda.synchronize()
@@ -236,14 +237,14 @@ def test_mghs_pool_kernel_widths(cuda, c):
 def test_mghs_pool_kernel_rejects_no_channels(cuda):
     (depth, feat, band_mask), plan = _pool_case(cuda, torch.float32,
                                                 "uniform")
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     with pytest.raises(ValueError, match="C=0"):
         mghs_pool_cuda(depth, feat[..., :0].contiguous(), band_mask, plan)
     with pytest.raises(ValueError, match="tasks"):
         import dataclasses
         mghs_pool_cuda(depth, feat, band_mask, dataclasses.replace(
             plan, tasks=plan.tasks[:, :3].contiguous()))
-    assert mghs_pool_cuda.launches == before
+    assert kernel_launches()["mghs_pool_cuda"] == before
 
 
 @pytest.mark.parametrize("piece", [1, 8, 128, 256])
@@ -258,9 +259,9 @@ def test_pool_plan_kernel_matches_plain(cuda, layout, piece):
     key_s, order = torch.sort(idx.key, stable=True)
     args = (key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
             vt.z_fine.size, piece)
-    before = pool_plan_cuda.launches
+    before = kernel_launches()["pool_plan_cuda"]
     got = pool_plan_cuda(*args)
-    assert pool_plan_cuda.launches == before + 1
+    assert kernel_launches()["pool_plan_cuda"] == before + 1
     want = pool_plan_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got[:5], want[:5]):
@@ -280,7 +281,7 @@ def test_pool_plan_kernel_rejects_bad_inputs(cuda):
     key_s, order = torch.sort(idx.key, stable=True)
     args = [key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
             vt.z_fine.size]
-    before = pool_plan_cuda.launches
+    before = kernel_launches()["pool_plan_cuda"]
     for piece in (0, 257):
         with pytest.raises(ValueError, match="piece"):
             pool_plan_cuda(*args, piece)
@@ -288,7 +289,7 @@ def test_pool_plan_kernel_rejects_bad_inputs(cuda):
         pool_plan_cuda(key_s, order.int(), *args[2:])
     with pytest.raises(ValueError, match="key_s"):
         pool_plan_cuda(key_s.long(), *args[1:])
-    assert pool_plan_cuda.launches == before
+    assert kernel_launches()["pool_plan_cuda"] == before
 
 
 def test_mghs_pool_kernel_needs_a_schedule(cuda):
@@ -296,10 +297,10 @@ def test_mghs_pool_kernel_needs_a_schedule(cuda):
     on the card, not pooled plainly."""
     import dataclasses
     args, plan = _pool_case(cuda, torch.float32, "uniform")
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     with pytest.raises(ValueError, match="schedule"):
         mghs_pool_cuda(*args, dataclasses.replace(plan, tasks=None))
-    assert mghs_pool_cuda.launches == before
+    assert kernel_launches()["mghs_pool_cuda"] == before
 
 
 @pytest.mark.parametrize("layout", ["hot", "uniform_piece8"])
@@ -353,9 +354,9 @@ def test_cost_volume_kernel_matches_plain(cuda, dtype, c):
     and differ only in the order of the channel sum; the bias lands on the
     same samples (exact zeros in channel 0 included)."""
     prev, curr, uf, vf = _cv_inputs(cuda, dtype, c)
-    before = stereo_cost_volume_cuda.launches
+    before = kernel_launches()["stereo_cost_volume_cuda"]
     got = stereo_cost_volume_cuda(prev, curr, uf, vf, 5.0)
-    assert stereo_cost_volume_cuda.launches == before + 1
+    assert kernel_launches()["stereo_cost_volume_cuda"] == before + 1
     want = cv_cost_plain(prev, curr, uf, vf, 5.0)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (prev.shape[0], 16) + prev.shape[1:3]
@@ -370,7 +371,7 @@ def test_cost_volume_kernel_matches_plain(cuda, dtype, c):
 
 def test_cost_volume_kernel_rejects_bad_inputs(cuda):
     prev, curr, uf, vf = _cv_inputs(cuda, torch.float32, 8)
-    before = stereo_cost_volume_cuda.launches
+    before = kernel_launches()["stereo_cost_volume_cuda"]
     with pytest.raises(ValueError, match="curr"):
         stereo_cost_volume_cuda(prev, curr.transpose(1, 2), uf, vf)
     with pytest.raises(ValueError, match="uf"):
@@ -383,7 +384,7 @@ def test_cost_volume_kernel_rejects_bad_inputs(cuda):
     wide = prev.repeat(1, 1, 1, 33)                  # C=264 > 256 in fp32
     with pytest.raises(ValueError, match="C=264"):
         stereo_cost_volume_cuda(wide, wide, uf, vf)
-    assert stereo_cost_volume_cuda.launches == before
+    assert kernel_launches()["stereo_cost_volume_cuda"] == before
 
 
 def _bf16_ulps(a, b):
@@ -405,9 +406,9 @@ def _check_layer_norm(cuda, dtype, rows, c, seed):
          ).to(dtype)
     w = 1 + 0.2 * torch.randn(c, generator=g, device=cuda)
     b = 0.5 * torch.randn(c, generator=g, device=cuda)
-    before = fused_layer_norm_cuda.launches
+    before = kernel_launches()["fused_layer_norm_cuda"]
     got = fused_layer_norm_cuda(x, w, b)
-    assert fused_layer_norm_cuda.launches == before + 1
+    assert kernel_launches()["fused_layer_norm_cuda"] == before + 1
     want = layer_norm_plain(x, w, b)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == x.shape
@@ -450,7 +451,7 @@ def test_layer_norm_kernel_edges(cuda, rows, c):
 def test_layer_norm_kernel_rejects_bad_inputs(cuda):
     x = torch.randn((4, 64), device=cuda)
     w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
-    before = fused_layer_norm_cuda.launches
+    before = kernel_launches()["fused_layer_norm_cuda"]
     with pytest.raises(ValueError, match="C=12"):
         fused_layer_norm_cuda(x[:, :12].contiguous(), w[:12], b[:12])
     with pytest.raises(ValueError, match="C=4096"):
@@ -461,7 +462,7 @@ def test_layer_norm_kernel_rejects_bad_inputs(cuda):
         fused_layer_norm_cuda(x, w.bfloat16(), b)
     with pytest.raises(TypeError):
         fused_layer_norm_cuda(x.half(), w, b)
-    assert fused_layer_norm_cuda.launches == before
+    assert kernel_launches()["fused_layer_norm_cuda"] == before
 
 
 def _attn_inputs(dev, dtype, ws, heads, hd, shifted, n_img_w=2, seed=7):
@@ -491,9 +492,9 @@ def test_window_attention_kernel_matches_plain(cuda, dtype, ws, heads, hd,
     (N = 256) takes more than 48 KB of shared memory."""
     torch.backends.cuda.matmul.allow_tf32 = False
     qkv, bias, mask = _attn_inputs(cuda, dtype, ws, heads, hd, shifted)
-    before = window_attention_cuda.launches
+    before = kernel_launches()["window_attention_cuda"]
     got = window_attention_cuda(qkv, bias, mask, heads)
-    assert window_attention_cuda.launches == before + 1
+    assert kernel_launches()["window_attention_cuda"] == before + 1
     want = window_attention_plain(qkv, bias, mask, heads)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -545,15 +546,15 @@ def test_window_attention_kernel_zero_mask_is_no_mask(cuda, dtype):
     ``mask=None``, bit for bit."""
     qkv, bias, _ = _attn_inputs(cuda, dtype, 12, 4, 32, False)
     zero = torch.zeros((1,) + bias.shape[1:], dtype=dtype, device=cuda)
-    before = window_attention_cuda.launches
+    before = kernel_launches()["window_attention_cuda"]
     got = window_attention_cuda(qkv, bias, zero, 4)
-    assert window_attention_cuda.launches == before + 1
+    assert kernel_launches()["window_attention_cuda"] == before + 1
     assert torch.equal(got, window_attention_cuda(qkv, bias, None, 4))
 
 
 def test_window_attention_kernel_rejects_bad_inputs(cuda):
     qkv, bias, mask = _attn_inputs(cuda, torch.float32, 4, 2, 16, True)
-    before = window_attention_cuda.launches
+    before = kernel_launches()["window_attention_cuda"]
     with pytest.raises(ValueError, match="unsupported shape"):
         window_attention_cuda(qkv, bias, mask, 4)            # hd = 8
     big = torch.zeros((2, 289, 96), device=cuda)             # window 17
@@ -568,7 +569,7 @@ def test_window_attention_kernel_rejects_bad_inputs(cuda):
         window_attention_cuda(qkv.transpose(0, 1), bias, mask, 2)
     with pytest.raises(TypeError):
         window_attention_cuda(qkv.half(), bias.half(), mask.half(), 2)
-    assert window_attention_cuda.launches == before
+    assert kernel_launches()["window_attention_cuda"] == before
 
 
 def _segsum_inputs(dev, dtype, c, layout="uniform", p=20000, v=9000, seed=8):
@@ -602,9 +603,9 @@ def test_segment_sum_kernel_matches_plain(cuda, dtype, out_dtype, c, layout):
     vals, seg, v = _segsum_inputs(cuda, dtype, c, layout)
     seg_s, order = torch.sort(seg, stable=True)
     vals_s = vals[order].contiguous()
-    before = sorted_segment_sum.launches
+    before = kernel_launches()["sorted_segment_sum"]
     got = sorted_segment_sum(vals_s, seg_s, v, out_dtype)
-    assert sorted_segment_sum.launches == before + 1
+    assert kernel_launches()["sorted_segment_sum"] == before + 1
     want = sorted_segment_sum_plain(vals_s, seg_s, v, out_dtype)
     terms = sorted_segment_sum_plain(vals_s.abs(), seg_s, v)
     torch.cuda.synchronize()
@@ -619,7 +620,7 @@ def test_segment_sum_kernel_matches_plain(cuda, dtype, out_dtype, c, layout):
     assert bool(empty.any()) and bool((got[empty] == 0).all())
     if out_dtype == dtype:
         unsorted = segment_sum_pooling(vals, seg, v)
-        assert sorted_segment_sum.launches == before + 2
+        assert kernel_launches()["sorted_segment_sum"] == before + 2
         assert torch.equal(unsorted, got)
 
 
@@ -639,7 +640,7 @@ def test_segment_sum_kernel_gradient(cuda):
 def test_segment_sum_kernel_rejects_bad_inputs(cuda):
     vals, seg, v = _segsum_inputs(cuda, torch.float32, 8)
     seg_s, _ = torch.sort(seg)
-    before = sorted_segment_sum.launches
+    before = kernel_launches()["sorted_segment_sum"]
     with pytest.raises(ValueError, match="seg_sorted"):
         sorted_segment_sum(vals, seg_s.long(), v)
     with pytest.raises(ValueError, match="vals"):
@@ -654,7 +655,7 @@ def test_segment_sum_kernel_rejects_bad_inputs(cuda):
         sorted_segment_sum(vals.half(), seg_s, v)
     with pytest.raises(TypeError):
         sorted_segment_sum(vals, seg_s, v, torch.float16)
-    assert sorted_segment_sum.launches == before
+    assert kernel_launches()["sorted_segment_sum"] == before
 
 
 def test_time_ms_counts_device_time_only(cuda):
@@ -730,12 +731,12 @@ def test_segment_sum_kernel_edges(cuda, case, dtype, out_dtype):
     vals = torch.tensor(rng.normal(0, 1, (p, c)), dtype=dtype, device=cuda)
     seg_s, order = torch.sort(seg, stable=True)
     vals_s = vals[order].contiguous()
-    before = sorted_segment_sum.launches
+    before = kernel_launches()["sorted_segment_sum"]
     got = sorted_segment_sum(vals_s, seg_s, v, out_dtype)
     gathered = sorted_segment_sum(vals, seg_s, v, out_dtype,
                                   order=order.to(torch.int32))
     again = sorted_segment_sum(vals_s, seg_s, v, out_dtype)
-    assert sorted_segment_sum.launches == before + 3
+    assert kernel_launches()["sorted_segment_sum"] == before + 3
     want = sorted_segment_sum_plain(vals_s, seg_s, v, out_dtype)
     terms = sorted_segment_sum_plain(vals_s.abs(), seg_s, v)
     torch.cuda.synchronize()
@@ -793,9 +794,9 @@ def test_cost_volume_kernel_widths(cuda, dtype, c):
     prev, curr, uf, vf = _cv_edge_inputs(cuda, dtype, c, 13, 37,
                                          GridConfig(1.0, 7.5, 0.5))
     assert uf.shape[1] == 13
-    before = stereo_cost_volume_cuda.launches
+    before = kernel_launches()["stereo_cost_volume_cuda"]
     got = stereo_cost_volume_cuda(prev, curr, uf, vf, 5.0)
-    assert stereo_cost_volume_cuda.launches == before + 1
+    assert kernel_launches()["stereo_cost_volume_cuda"] == before + 1
     want = cv_cost_plain(prev, curr, uf, vf, 5.0)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * c ** 0.5)
@@ -837,11 +838,13 @@ def test_swin_gradients_on_the_card(cuda):
     x = torch.randn(2, 3, 32, 48, generator=torch.Generator().manual_seed(2))
     r = [torch.randn(o.shape, generator=torch.Generator().manual_seed(3))
          for o in cpu(x)]
-    attn, ln = window_attention_cuda.launches, fused_layer_norm_cuda.launches
+    def b4_b5():
+        n = kernel_launches()
+        return n["window_attention_cuda"], n["fused_layer_norm_cuda"]
+    attn, ln = b4_b5()
     g_gpu = _grads(gpu, lambda: sum((o * w.to(cuda)).sum()
                                     for o, w in zip(gpu(x.to(cuda)), r)))
-    assert (window_attention_cuda.launches, fused_layer_norm_cuda.launches
-            ) == (attn, ln)
+    assert b4_b5() == (attn, ln)
     g_cpu = _grads(cpu, lambda: sum((o * w).sum() for o, w in zip(cpu(x), r)))
     assert set(g_gpu) == set(g_cpu) == {n for n, _ in cpu.named_parameters()}
     for n, g in g_cpu.items():
@@ -849,8 +852,8 @@ def test_swin_gradients_on_the_card(cuda):
         assert float((g_gpu[n] - g).abs().max()) / peak < 2e-4, n
     with torch.no_grad():
         gpu(x.to(cuda))
-    assert window_attention_cuda.launches == attn + 4
-    assert fused_layer_norm_cuda.launches == ln + 11
+    assert kernel_launches()["window_attention_cuda"] == attn + 4
+    assert kernel_launches()["fused_layer_norm_cuda"] == ln + 11
 
 
 def test_view_transformer_gradients_on_the_card(cuda):
@@ -878,9 +881,10 @@ def test_view_transformer_gradients_on_the_card(cuda):
         plan = build_batch_pool_plan(cfg, batch, device=dev)
         x = x0.to(dev).requires_grad_(True)
         vt_mod = model.img_view_transformer
-        before = mghs_pool_cuda.launches
+        before = kernel_launches()["mghs_pool_cuda"]
         out = vt_mod(x, model._geom(batch), plan)
-        assert mghs_pool_cuda.launches == before + (dev.type == "cuda")
+        assert kernel_launches()["mghs_pool_cuda"] == before + (
+            dev.type == "cuda")
         g = _grads(vt_mod, lambda: out["bev"].square().sum()
                    + out["vox"].square().sum())
         g["x"] = x.grad.cpu()
@@ -930,9 +934,11 @@ def test_ray_march_and_render_on_the_card_follow_the_cpu(cuda):
 
 def test_eval_cli_on_the_card_launches_b1(cuda, capsys):
     from dhd_tpu_torch.cli.test import main
-    from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda
-    before = (mghs_pool_cuda.launches, pool_plan_cuda.launches)
+
+    def b1():
+        n = kernel_launches()
+        return n["mghs_pool_cuda"], n["pool_plan_cuda"]
+    before = b1()
     assert main(["--preset", "dhd_tiny", "--synthetic"]) == 0
     assert "evaluated 2 samples" in capsys.readouterr().out
-    assert (mghs_pool_cuda.launches, pool_plan_cuda.launches) == (
-        before[0] + 2, before[1] + 2)
+    assert b1() == (before[0] + 2, before[1] + 2)

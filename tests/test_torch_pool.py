@@ -18,6 +18,7 @@ from dhd_tpu_torch.config import GridConfig as TGrid
 from dhd_tpu_torch.config import ViewTransformConfig as TVT
 from dhd_tpu_torch.ops import (build_pool_plan, compute_pool_indices,
                                mghs_pool, mghs_pool_cuda)
+from dhd_tpu_torch.profiling import kernel_launches
 
 
 def _vts(z_full=(-1.0, 5.4, 6.4)):
@@ -152,9 +153,9 @@ def test_gated_off_points_reach_bev_not_vox(port):
 def test_wrapper_on_cpu_counts_no_launch():
     _, vt = _vts()
     depth, feat, coords, band_mask = _inputs(vt, seed=4)
-    before = mghs_pool_cuda.launches
+    before = kernel_launches()["mghs_pool_cuda"]
     _port_pool("plan", depth, feat, coords, band_mask, vt)
-    assert mghs_pool_cuda.launches == before
+    assert kernel_launches()["mghs_pool_cuda"] == before
 
 
 def test_plan_plain_sums_exactly_with_a_float64_accumulator():

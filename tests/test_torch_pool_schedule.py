@@ -21,6 +21,7 @@ from dhd_tpu_torch.ops.mghs_pool_cuda import (POOL_PIECE, lanes_per_point,
                                               pool_plan_cuda,
                                               pool_plan_plain,
                                               pool_schedule_plain)
+from dhd_tpu_torch.profiling import kernel_launches
 
 VT = ViewTransformConfig(input_size=(64, 256), downsample=16,
                          depth=GridConfig(1.0, 9.0, 1.0),
@@ -153,9 +154,9 @@ def test_cpu_plan_has_no_schedule():
     key_s, order = torch.sort(idx.key, stable=True)
     args = (key_s, order, idx.seg_vox, idx.num_seg_vox, SHAPE,
             VT.z_fine.size)
-    before = pool_plan_cuda.launches
+    before = kernel_launches()["pool_plan_cuda"]
     got = pool_plan_cuda(*args)
-    assert pool_plan_cuda.launches == before
+    assert kernel_launches()["pool_plan_cuda"] == before
     want = (plan.dix_s, plan.z_s, plan.starts) + pool_schedule_plain(
         plan.starts, plan.dix_s.numel())
     for g, w, p in zip(got, want, pool_plan_plain(*args)):

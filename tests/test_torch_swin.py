@@ -31,6 +31,7 @@ from dhd_tpu_torch.nn import swin as S
 from dhd_tpu_torch.ops import (fused_layer_norm_cuda, layer_norm_plain,
                                window_attention_cuda, window_attention_plain)
 from dhd_tpu_torch.ops.window_attention import attention_scale
+from dhd_tpu_torch.profiling import kernel_launches
 
 
 def _rel_to_peak(a, b):
@@ -82,10 +83,10 @@ def test_layer_norm_plain_matches_jax(shape, dtype, ref):
                            torch.from_numpy(bias))
     assert got.dtype == tx.dtype and tuple(got.shape) == shape
     # the wrapper takes the plain version on the CPU and counts no launch
-    before = fused_layer_norm_cuda.launches
+    before = kernel_launches()["fused_layer_norm_cuda"]
     assert torch.equal(fused_layer_norm_cuda(tx, torch.from_numpy(scale),
                                              torch.from_numpy(bias)), got)
-    assert fused_layer_norm_cuda.launches == before
+    assert kernel_launches()["fused_layer_norm_cuda"] == before
     if dtype == "bfloat16":
         assert _bf16_ulps(_f32(got), _f32(want)) <= 1
     else:
@@ -147,9 +148,9 @@ def test_window_attention_plain_matches_jax(kernel, n_img, heads, c):
     want_x = _xla_window_attention(*j_args, heads)
     t_args = [torch.from_numpy(a) for a in (qkv, bias, mask)]
     got = window_attention_plain(*t_args, heads)
-    before = window_attention_cuda.launches
+    before = kernel_launches()["window_attention_cuda"]
     assert torch.equal(window_attention_cuda(*t_args, heads), got)
-    assert window_attention_cuda.launches == before
+    assert kernel_launches()["window_attention_cuda"] == before
     for want in (want_k, want_x):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
@@ -191,10 +192,10 @@ def test_wrappers_raise_off_the_cpu_and_cuda(wrapper):
         fn, args = fused_layer_norm_cuda, (
             torch.empty((4, 64), device=meta),
             torch.empty(64, device=meta), torch.empty(64, device=meta))
-    before = fn.launches
+    before = kernel_launches()[fn.__name__]
     with pytest.raises(ValueError, match="unsupported device meta"):
         fn(*args)
-    assert fn.launches == before
+    assert kernel_launches()[fn.__name__] == before
 
 
 # ----------------------------------------------- permutations, index, mask
