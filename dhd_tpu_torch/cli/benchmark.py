@@ -110,7 +110,9 @@ def _model(cfg, dt, dev):
 
 def _print_setup() -> None:
     """The set-up spans so far (``profiling.span(..., always=True)``),
-    seconds summed by name, and the kernel builds and loads."""
+    seconds summed by name, the kernel builds and loads, and the served
+    frames' CUDA graph captures, replays and unit calls run eagerly
+    (``models/graphs.py``)."""
     from dhd_tpu_torch.profiling import counters, spans
     total: Dict[str, float] = {}
     for name, _, t0, t1 in spans():
@@ -120,7 +122,10 @@ def _print_setup() -> None:
     print("set-up: " + ", ".join(f"{k.removeprefix('setup.')} {v:.3f} s"
                                  for k, v in total.items())
           + f"; kernel loads {c.get('kernel_loads', 0)}, builds "
-          f"{c.get('kernel_builds', 0)}")
+          f"{c.get('kernel_builds', 0)}; graph captures "
+          f"{c.get('graph_captures', 0)}, replays "
+          f"{c.get('graph_replays', 0)}, eager calls "
+          f"{c.get('graph_eager_calls', 0)}")
 
 
 def _key_frame(cfg, batch: Dict[str, np.ndarray], keys) -> Dict:

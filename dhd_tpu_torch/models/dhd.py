@@ -39,6 +39,8 @@ from dhd_tpu_torch.ops import (PoolIndices, PoolPlan, build_pool_plan,
                                compute_pool_indices, mghs_pool,
                                mghs_pool_cuda)
 
+from . import graphs
+
 GEOM_KEYS = ("sensor2keyego", "intrins", "post_rots", "post_trans", "bda")
 
 
@@ -295,6 +297,10 @@ class DHDNet(nn.Module):
 
     The forward computes in :attr:`dtype`: the weights' own, or inside
     :meth:`computing_in` another (bf16 mixed-precision training).
+
+    A frame served in eval mode on the card with the rig's cached plans
+    replays CUDA graphs of its modules after two frames
+    (:mod:`dhd_tpu_torch.models.graphs`); its outputs are the caller's.
     """
     temporal = False
     compute_dtype: Optional[torch.dtype] = None
@@ -361,6 +367,8 @@ class DHDNet(nn.Module):
         with profiling.span("setup.init_weights", always=True):
             init_weights(self, generator if generator is not None
                          else torch.Generator().manual_seed(0))
+        self._graphs = graphs.FrameGraphs()
+        self.register_load_state_dict_post_hook(DHDNet._weights_loaded)
         self.eval()
         self.to(device=device, dtype=dtype)
 
@@ -393,6 +401,27 @@ class DHDNet(nn.Module):
         finally:
             self.compute_dtype = saved
 
+    def _weights_loaded(self, incompatible_keys) -> None:
+        """``load_state_dict``'s hook: the served frame captures anew."""
+        self._graphs.invalidate()
+
+    def _served(self, call: str, batch: Dict[str, Any],
+                cache: Optional[Dict[str, torch.Tensor]] = None):
+        """The frame of a call (``"frame"``, ``"stream"``): from CUDA
+        graphs where :func:`graphs.engages`, eager otherwise.  The rig's
+        plans count where the served path reads them: the pooling kernel's
+        ``pool_plan``, and a stereo model's ``cv_static`` for B3."""
+        cfg = self.cfg
+        rig = () if cfg.pool_method == "xla" else ("pool_plan",)
+        if cfg.stereo:
+            rig = () if cfg.cv_method == "xla" else rig + ("cv_static",)
+        engaged = graphs.engages(
+            call, training=self.training,
+            grad_enabled=torch.is_grad_enabled(), device=self.device,
+            compiling=graphs.compiling(), batch=batch, rig=rig, cache=cache)
+        return self._graphs.frame(engaged, batch, rig, cache, self.device,
+                                  self.dtype)
+
     def _geom(self, batch: Dict[str, Any], keys=GEOM_KEYS
               ) -> Dict[str, torch.Tensor]:
         return {k: _as_tensor(batch[k], self.device, torch.float32)
@@ -405,14 +434,14 @@ class DHDNet(nn.Module):
         output with ``stage0_only``).  ``generator`` draws the Swin's
         DropPath masks in training."""
         with profiling.span("encode"):
-            feats = self.img_backbone(imgs, stage0_only=stage0_only,
-                                      generator=generator)
+            feats = self._unit("img_backbone", imgs, stage0_only=stage0_only,
+                               generator=generator)
             if stage0_only:
                 return None, feats
             stereo_feat = None
             if self.cfg.stereo:
                 stereo_feat, feats = feats[0], feats[1:]
-            return self.img_neck(feats), stereo_feat
+            return self._unit("img_neck", feats), stereo_feat
 
     def _fuse_and_predict(self, bev: torch.Tensor, vox: torch.Tensor):
         """BEV encoder || slab UNets -> SFA -> occupancy head.
@@ -422,21 +451,28 @@ class DHDNet(nn.Module):
         (B, Dx, Dy, Dz*n_cls), fp32."""
         with profiling.span("head"):
             cfg = self.cfg
+            unit = self._unit
             bev = bev.permute(0, 3, 1, 2)
-            x_2d = self.img_bev_encoder_backbone(bev)
+            x_2d = unit("img_bev_encoder_backbone", bev)
             if cfg.bev_encoder == "custom_resnet":
-                x_2d = self.img_bev_encoder_neck(x_2d)
+                x_2d = unit("img_bev_encoder_neck", x_2d)
             s1, s2, _ = cfg.vt.slab_sizes          # vox z-minor
             slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
                      vox[..., s1 + s2:, :])
             x_3d = torch.cat([
-                getattr(self, f"img_voxel_encoder{k}")(
-                    collapse_z(slab).permute(0, 3, 1, 2))
+                unit(f"img_voxel_encoder{k}",
+                     collapse_z(slab).permute(0, 3, 1, 2))
                 for k, slab in enumerate(slabs)], dim=1)
-            fused = self.mix(torch.cat([x_2d, x_3d], dim=1))
-            occ = self.occ_head(fused).float()  # (B, Dx, Dy, Dz*n_cls)
+            fused = unit("mix", torch.cat([x_2d, x_3d], dim=1))
+            # (B, Dx, Dy, Dz*n_cls), the caller's
+            occ = self._graphs.own(unit("occ_head", fused).float())
             return (occ.reshape(occ.shape[:3]
                                 + (cfg.head_Dz, cfg.num_classes)), occ)
+
+    def _unit(self, name: str, *args, **kwargs):
+        """The child module ``name`` called as a unit of the frame's
+        graphs."""
+        return self._graphs.call(name, getattr(self, name), *args, **kwargs)
 
     def forward(self, batch: Dict[str, Any],
                 generator: Optional[torch.Generator] = None
@@ -456,7 +492,8 @@ class DHDNet(nn.Module):
           (B, Dx, Dy, Dz*n_cls), depth and height distributions; fp32.
         """
         with profiling.span("forward"), torch.set_grad_enabled(
-                self.training and torch.is_grad_enabled()):
+                self.training and torch.is_grad_enabled()), \
+                self._served("frame", batch):
             return self._single_frame(batch, generator)
 
     def _single_frame(self, batch, generator):
@@ -467,9 +504,9 @@ class DHDNet(nn.Module):
             generator=generator)
         x = x.reshape((b, n) + x.shape[1:])
         with profiling.span("view_transform"):
-            vt_out = self.img_view_transformer(x, self._geom(batch),
-                                               batch.get("pool_plan"),
-                                               generator=generator)
+            vt_out = self._unit("img_view_transformer", x, self._geom(batch),
+                                batch.get("pool_plan"), generator=generator)
         occ, occ_flat = self._fuse_and_predict(vt_out["bev"], vt_out["vox"])
         return {"occ_logits": occ, "occ_logits_flat": occ_flat,
-                "depth": vt_out["depth"], "height": vt_out["height"]}
+                "depth": self._graphs.own(vt_out["depth"]),
+                "height": self._graphs.own(vt_out["height"])}

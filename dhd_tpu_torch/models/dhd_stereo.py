@@ -100,6 +100,18 @@ def stream_geometry(s2e: torch.Tensor, e2g: torch.Tensor
             torch.einsum("bnij,bnjk->bnik", e2g, s2e))
 
 
+def frame_geometry(s2e: torch.Tensor, e2g: torch.Tensor,
+                   prev_c2g: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """The geometry of a streamed frame: :func:`stream_geometry`'s two
+    transforms and the current -> previous camera transform from the
+    previous frame's camera -> global ``prev_c2g`` (None without one)."""
+    s2k, cam2global = stream_geometry(s2e, e2g)
+    k2s = None if prev_c2g is None else rigid_relative(prev_c2g, cam2global)
+    return s2k, cam2global, k2s
+
+
 def prepare_stereo_inputs(batch: Dict[str, Any],
                           device: Union[str, torch.device]
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -183,19 +195,30 @@ class DHDStereoNet(DHDNet):
         features ``sf`` (B*N, Hs, Ws, Cs) against ``prev_sf``; zero without
         a previous frame (depthnet.py:396-403).  ``static`` is the rig's
         :func:`build_stream_cv_static`."""
-        cfg = self.cfg
         bn, hs, ws, cs = sf.shape
         with profiling.span("cost_volume"):
             if prev_sf is None:
-                return torch.zeros((bn, cfg.vt.D, hs, ws), dtype=self.dtype,
-                                   device=self.device)
-            cv = stereo_cost_volume(
-                prev_sf.reshape(b, n, hs, ws, cs),
-                sf.reshape(b, n, hs, ws, cs), self._cv_frustum, k2s,
+                return torch.zeros((bn, self.cfg.vt.D, hs, ws),
+                                   dtype=self.dtype, device=self.device)
+            return self._graphs.call(
+                "cost_volume", self._warped_cost, prev_sf, sf, k2s,
                 geom["intrins"], geom["post_rots"], geom["post_trans"],
-                bias=cfg.depthnet_cfg.bias, method=cfg.cv_method,
-                static=static)
-            return cv.reshape(bn, -1, hs, ws).to(self.dtype)
+                static, b, n)
+
+    def _warped_cost(self, prev_sf: torch.Tensor, sf: torch.Tensor,
+                     k2s: torch.Tensor, intrins: torch.Tensor,
+                     post_rots: torch.Tensor, post_trans: torch.Tensor,
+                     static: Optional[Dict[str, Any]], b: int, n: int
+                     ) -> torch.Tensor:
+        """The cost volume against a previous frame: its warp plan, B3
+        and the softmax."""
+        cfg = self.cfg
+        bn, hs, ws, cs = sf.shape
+        cv = stereo_cost_volume(
+            prev_sf.reshape(b, n, hs, ws, cs), sf.reshape(b, n, hs, ws, cs),
+            self._cv_frustum, k2s, intrins, post_rots, post_trans,
+            bias=cfg.depthnet_cfg.bias, method=cfg.cv_method, static=static)
+        return cv.reshape(bn, -1, hs, ws).to(self.dtype)
 
     def _frame(self, imgs: torch.Tensor, geom: Dict[str, torch.Tensor],
                prev_sf: Optional[torch.Tensor],
@@ -216,8 +239,9 @@ class DHDStereoNet(DHDNet):
             sf = sfeat.permute(0, 2, 3, 1).contiguous()
             cv = self._cost_volume(prev_sf, sf, k2s, geom, b, n, cv_static)
         with profiling.span("view_transform"):
-            out = self.img_view_transformer(
-                x.reshape((b, n) + x.shape[1:]), geom, plan, cv, generator)
+            out = self._unit("img_view_transformer",
+                             x.reshape((b, n) + x.shape[1:]), geom, plan, cv,
+                             generator)
         out["bev"], out["vox"] = self._pre_process(out["bev"], out["vox"])
         return out, sf
 
@@ -227,9 +251,9 @@ class DHDStereoNet(DHDNet):
         if not self.cfg.pre_process:
             return bev, vox
         with profiling.span("pre_process"):
-            bev = self.pre_process_net(bev.permute(0, 3, 1, 2))[0]
-            vz = self.pre_process_net_3d(
-                collapse_z(vox).permute(0, 3, 1, 2))[0]
+            bev = self._unit("pre_process_net", bev.permute(0, 3, 1, 2))[0]
+            vz = self._unit("pre_process_net_3d",
+                            collapse_z(vox).permute(0, 3, 1, 2))[0]
             return (bev.permute(0, 2, 3, 1),
                     uncollapse_z(vz.permute(0, 2, 3, 1),
                                  self.cfg.vt.z_fine.size))
@@ -237,7 +261,8 @@ class DHDStereoNet(DHDNet):
     def _outputs(self, bev, vox, depth, height) -> Dict[str, torch.Tensor]:
         occ, occ_flat = self._fuse_and_predict(bev, vox)
         return {"occ_logits": occ, "occ_logits_flat": occ_flat,
-                "depth": depth, "height": height}
+                "depth": self._graphs.own(depth),
+                "height": self._graphs.own(height)}
 
     def forward(self, batch: Dict[str, Any],
                 cache: Optional[CacheDict] = None, with_prev: bool = True,
@@ -252,7 +277,8 @@ class DHDStereoNet(DHDNet):
         with profiling.span("forward"), torch.set_grad_enabled(
                 self.training and torch.is_grad_enabled()):
             if cache is not None:
-                return self._streaming(batch, cache, generator)
+                with self._served("stream", batch, cache):
+                    return self._streaming(batch, cache, generator)
             return self._frames(batch, with_prev, generator)
 
     def _streaming(self, batch: Dict[str, Any], cache: CacheDict,
@@ -262,16 +288,13 @@ class DHDStereoNet(DHDNet):
         stereo_feat (B*N, Hs, Ws, Cs) channels-last; bev (B, Dy, Dx, C) and
         vox (B, Dy, Dx, Dz, C) pooled in the previous frame's ego
         coordinates; cam2global (B, N, 4, 4) fp32 of the previous frame."""
-        vt = self.cfg.vt
-        dz = vt.z_fine.size
         geom = self._geom(batch, ("intrins", "post_rots", "post_trans",
                                   "bda", "sensor2ego", "ego2global"))
         e2g = geom.pop("ego2global")
-        s2k, cam2global = stream_geometry(geom.pop("sensor2ego"), e2g)
-        geom["sensor2keyego"] = s2k
         prev_c2g = cache.get("cam2global")
-        k2s = None if prev_c2g is None else rigid_relative(prev_c2g,
-                                                           cam2global)
+        s2k, cam2global, k2s = self._graphs.call(
+            "geometry", frame_geometry, geom.pop("sensor2ego"), e2g, prev_c2g)
+        geom["sensor2keyego"] = s2k
         out, sf = self._frame(
             _as_tensor(batch["imgs"], self.device, self.dtype), geom,
             cache.get("stereo_feat"), k2s, batch.get("pool_plan"),
@@ -281,20 +304,31 @@ class DHDStereoNet(DHDNet):
         if cache.get("bev") is None:
             prev_bev, prev_vox = torch.zeros_like(bev), torch.zeros_like(vox)
         else:
-            # warp the cached grids from the previous ego frame into the
-            # current one (shift_feature, bevdet4d.py:118-134)
             with profiling.span("history_warp"):
-                prev_s2k_front = rigid_relative(e2g[:, 0], prev_c2g[:, 0])
-                grid = shift_grid(vt.y.size, vt.x.size, s2k[:, 0],
-                                  prev_s2k_front, geom["bda"], vt.x, vt.y)
-                prev_bev = grid_sample_2d(cache["bev"], grid)
-                prev_vox = uncollapse_z(
-                    grid_sample_2d(collapse_z(cache["vox"]), grid), dz)
+                prev_bev, prev_vox = self._graphs.call(
+                    "history_warp", self._warp_history, e2g, prev_c2g, s2k,
+                    geom["bda"], cache["bev"], cache["vox"])
         outputs = self._outputs(torch.cat([prev_bev, bev], dim=-1),
                                 torch.cat([prev_vox, vox], dim=-1),
                                 out["depth"], out["height"])
-        return outputs, {"stereo_feat": sf, "bev": bev, "vox": vox,
-                         "cam2global": cam2global}
+        # the caller's: no later replay writes them
+        own = self._graphs.own
+        return outputs, {"stereo_feat": own(sf), "bev": own(bev),
+                         "vox": own(vox), "cam2global": own(cam2global)}
+
+    def _warp_history(self, e2g: torch.Tensor, prev_c2g: torch.Tensor,
+                      s2k: torch.Tensor, bda: torch.Tensor,
+                      bev: torch.Tensor, vox: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The previous frame's grids warped from its ego frame into the
+        current one (shift_feature, bevdet4d.py:118-134)."""
+        vt = self.cfg.vt
+        prev_s2k_front = rigid_relative(e2g[:, 0], prev_c2g[:, 0])
+        grid = shift_grid(vt.y.size, vt.x.size, s2k[:, 0], prev_s2k_front,
+                          bda, vt.x, vt.y)
+        return (grid_sample_2d(bev, grid),
+                uncollapse_z(grid_sample_2d(collapse_z(vox), grid),
+                             vt.z_fine.size))
 
     def _frames(self, batch: Dict[str, Any], with_prev: bool,
                 generator: Optional[torch.Generator] = None

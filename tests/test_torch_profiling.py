@@ -55,20 +55,25 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _server(preset, dev=torch.device("cpu")):
-    """The preset's model and a served frame: ``step()`` serves one."""
+def _server(preset, dev=torch.device("cpu"), cached=True):
+    """The preset's model and a served frame: ``step()`` serves one.  With
+    ``cached`` the frame carries the rig's cached plans (on the card such
+    frames replay CUDA graphs after two); without, each frame plans in the
+    call and runs eagerly."""
     cfg = get_config(preset)
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, seed=0, with_gt=False)
     if not cfg.temporal:
         frame = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        frame["pool_plan"] = build_batch_pool_plan(cfg, frame, device=dev)
+        if cached:
+            frame["pool_plan"] = build_batch_pool_plan(cfg, frame, device=dev)
         return model, frame, lambda: model(frame)
     frame = {k: torch.as_tensor(batch[k] if k == "bda" else batch[k][:, 0],
                                 device=dev) for k in STREAM_KEYS}
-    frame["pool_plan"] = build_stream_pool_plan(cfg, frame, device=dev)
-    frame["cv_static"] = build_stream_cv_static(cfg, frame, device=dev)
+    if cached:
+        frame["pool_plan"] = build_stream_pool_plan(cfg, frame, device=dev)
+        frame["cv_static"] = build_stream_cv_static(cfg, frame, device=dev)
     state = {"cache": {}}
 
     def step():
@@ -211,9 +216,10 @@ def test_ten_thousand_spans_off_take_under_5_ms():
 
 @pytest.mark.cuda
 def test_launch_anchors_place_each_frame_on_the_card():
-    """24 streamed tiny stereo frames under a device-only profiler: each
-    mark falls inside a ``forward`` span, every frame marks the same
-    launches, and the trace's clock put on the program's
+    """24 streamed tiny stereo frames under a device-only profiler, served
+    without the rig's cached plans, so eagerly (a replayed CUDA graph makes
+    no launch mark): each mark falls inside a ``forward`` span, every frame
+    marks the same launches, and the trace's clock put on the program's
     (``bench_port/spans.py:clock``, an anchor a frame) places each marked
     kernel's start inside its frame: after the frame's ``forward`` span
     opens, before the next one does.  (No offset holds a stretch to the
@@ -226,7 +232,7 @@ def test_launch_anchors_place_each_frame_on_the_card():
     from bench_port.trace import traced
 
     dev = torch.device("cuda")
-    _, _, step = _server("dhd_tiny_stereo", dev)
+    _, _, step = _server("dhd_tiny_stereo", dev, cached=False)
     with torch.no_grad():
         for _ in range(3):
             step()
