@@ -1574,6 +1574,30 @@ def tiny_dhd_l():
         img_neck_out_channels=base.vt.in_channels, sfa_in_channels=128)
 
 
+def tiny_dhd_m():
+    """A tiny DHD-M-shaped config (tests/test_torch_dhd_m.py, the
+    benchmark's ``dhd_m.stream`` tests): dhd_tiny_stereo with DHD-M's BEV
+    side, the UNet BEV encoder (out 128, twice the tiny BEV neck's 64, as
+    DHD-M's 512 is DHD-L's 256), slab UNets and SFA at twice the tiny
+    widths, the head taking SFA's output.  A 40x40 grid takes the UNets
+    through an odd size (40, 20, 10, 5, 2), as DHD-M's 200x200 grid does
+    (25, 12)."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.config import GridConfig
+
+    base = get_config("dhd_tiny_stereo")
+    grid = GridConfig(-8.0, 8.0, 0.4)
+    vox = tuple(2 * c for c in base.voxel_encoder_out)
+    unet_out = 2 * base.bev_neck_out_channels
+    return dataclasses.replace(
+        base, name="tiny_dhd_m",
+        vt=dataclasses.replace(base.vt, x=grid, y=grid),
+        bev_encoder="unet", bev_unet_out=unet_out, voxel_encoder_out=vox,
+        sfa_in_channels=unet_out + sum(vox),
+        sfa_out_channels=2 * base.sfa_out_channels,
+        head_in_dim=2 * base.sfa_out_channels)
+
+
 def phase_small_stream(dev, cfg, phase):
     """A small temporal config in fp32: two streaming steps, GPU kernel
     path vs CPU plain path, same weights."""

@@ -452,20 +452,23 @@ class DHDNet(nn.Module):
         with profiling.span("head"):
             cfg = self.cfg
             unit = self._unit
-            bev = bev.permute(0, 3, 1, 2)
-            x_2d = unit("img_bev_encoder_backbone", bev)
-            if cfg.bev_encoder == "custom_resnet":
-                x_2d = unit("img_bev_encoder_neck", x_2d)
-            s1, s2, _ = cfg.vt.slab_sizes          # vox z-minor
-            slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
-                     vox[..., s1 + s2:, :])
-            x_3d = torch.cat([
-                unit(f"img_voxel_encoder{k}",
-                     collapse_z(slab).permute(0, 3, 1, 2))
-                for k, slab in enumerate(slabs)], dim=1)
-            fused = unit("mix", torch.cat([x_2d, x_3d], dim=1))
-            # (B, Dx, Dy, Dz*n_cls), the caller's
-            occ = self._graphs.own(unit("occ_head", fused).float())
+            with profiling.span("bev_encoder"):
+                x_2d = unit("img_bev_encoder_backbone",
+                            bev.permute(0, 3, 1, 2))
+                if cfg.bev_encoder == "custom_resnet":
+                    x_2d = unit("img_bev_encoder_neck", x_2d)
+            with profiling.span("voxel_encoders"):
+                s1, s2, _ = cfg.vt.slab_sizes          # vox z-minor
+                slabs = (vox[..., :s1, :], vox[..., s1:s1 + s2, :],
+                         vox[..., s1 + s2:, :])
+                x_3d = torch.cat([
+                    unit(f"img_voxel_encoder{k}",
+                         collapse_z(slab).permute(0, 3, 1, 2))
+                    for k, slab in enumerate(slabs)], dim=1)
+            with profiling.span("fuse"):
+                fused = unit("mix", torch.cat([x_2d, x_3d], dim=1))
+                # (B, Dx, Dy, Dz*n_cls), the caller's
+                occ = self._graphs.own(unit("occ_head", fused).float())
             return (occ.reshape(occ.shape[:3]
                                 + (cfg.head_Dz, cfg.num_classes)), occ)
 

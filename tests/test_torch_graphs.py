@@ -325,7 +325,7 @@ def test_hooks_and_spans_open_around_each_replay(dev):
         served(dict(frames[4], **rig))
     assert [s[0] for s in profiling.spans()] == [
         "forward", "encode", "cost_volume", "view_transform", "pre_process",
-        "history_warp", "head"]
+        "history_warp", "head", "bev_encoder", "voxel_encoders", "fuse"]
     assert _counters()["graph_replays"] == len(UNITS["dhd_micro_stereo"])
 
 

@@ -30,11 +30,13 @@ STREAM_KEYS = ("imgs", "sensor2ego", "ego2global", "intrins", "post_rots",
 # a served frame's spans, (name, depth), in the order they open
 SERVED = {
     "dhd_tiny": [("forward", 0), ("encode", 1), ("view_transform", 1),
-                 ("head", 1)],
+                 ("head", 1), ("bev_encoder", 2), ("voxel_encoders", 2),
+                 ("fuse", 2)],
     "dhd_tiny_stereo": [
         ("forward", 0), ("encode", 1), ("cost_volume", 1),
         ("view_transform", 1), ("pre_process", 1), ("history_warp", 1),
-        ("head", 1)]}
+        ("head", 1), ("bev_encoder", 2), ("voxel_encoders", 2),
+        ("fuse", 2)]}
 CLOCK_US = 50.0
 # idle gaps planted on the card: their length; the anchored clock's error
 # over a stretch (up to 0.14 ms in the median on the H100 it was measured
