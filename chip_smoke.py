@@ -190,7 +190,18 @@ Phases, one line each; any failure raises and exits non-zero:
    phase 22's format with lidar sweeps (the train pipeline's augmentation
    and its lidar projection through ``native/``, built with g++ on the
    card's host): losses finite, the CLI's s/it beside the train loader's
-   samples/s alone.
+   samples/s alone;
+28. kernel vs plain: the UNet epilogues (``ops/unet_epilogue.py``) at
+   every shape a served base-64 UNet at 200x200 gives them, bf16 (eval
+   BatchNorm and ReLU at each level, the skip written into its
+   concatenation buffer with its max pool, the transposed conv's bias,
+   pad and concatenation), bit for bit the chain, NaNs among the inputs:
+   kernel and plain ms, the bound in bytes at 3.35 TB/s and its share,
+   the kernel's and the chain's launches; then DHD-S's, DHD-M's and
+   DHD-L's UNets whole, kernel path against the modules' chain (ms,
+   launches, bit for bit), and the launch-weighted ms a frame.  The
+   served phases 3, 7 and 12 count the kernels' 22 launches a UNet in the
+   frames that launch.
 
 Phases 4, 8, 13 and 17 compare fp32 on the GPU with the CPU and turn TF32
 off in cuDNN and matmul for their run; the others run in PyTorch's
@@ -258,6 +269,8 @@ PHASE_OF = {"dhd_s": {"pool": 2}, "hot": {"pool": 14},
 PHASE_OF.update({f"dhd_l_train_{p}_{f}": {"pool": 18, "cv": 18}
                  for p in ("bf16", "fp32") for f in ("history", "key")})
 SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
+UNET_LAUNCHES = 22          # epilogue launches a base-64 UNet: 18 BN+ReLU
+#                             (4 of them with the skip and the pool), 4 Ups
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device clock ahead of each timed call
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3    # DHD-S train steps, phase 16
 TRAIN_STEPS_BF16 = 3                # DHD-S bf16 timed steps, phase 16
@@ -317,6 +330,35 @@ def replayed_frames() -> int:
     without a launch of the wrappers (``models/graphs.py``)."""
     c = profiling.counters()
     return c.get("graph_replays", 0) // max(c.get("graph_captures", 0), 1)
+
+
+def unet_kern(kernels) -> dict:
+    """The UNet epilogues' entry of the kernels' JSON line."""
+    return kernels.setdefault("unet_epilogue_cuda", {
+        "name": "unet_epilogue_cuda", "route": "cuda",
+        "source": "dhd_tpu_torch/csrc/unet_epilogue.cu",
+        "replaces": "none: the eager chain after the UNets' convs",
+        "launches": None, "max_abs_err": 0.0, "shapes": {},
+        "launches_by_path": {}})
+
+
+def unets(cfg) -> int:
+    """The UNets a served frame of ``cfg`` runs: three slab encoders, and
+    DHD-M's BEV encoder."""
+    return 3 + (cfg.bev_encoder == "unet")
+
+
+def check_unet_launches(kernels, cfg, path, replayed, frames=5) -> int:
+    """The UNet epilogues' launches in ``frames`` served frames, of which
+    ``replayed`` replayed: UNET_LAUNCHES a UNet in each other frame."""
+    from dhd_tpu_torch.ops.unet_epilogue import COUNTER
+
+    got = profiling.kernel_launches()[COUNTER]
+    want = (frames - replayed) * UNET_LAUNCHES * unets(cfg)
+    check(got == want, f"unet_epilogue_cuda launched {got} times in "
+          f"{frames} frames, {replayed} replayed; want {want}")
+    unet_kern(kernels)["launches_by_path"][path] = got
+    return got
 
 
 def smi_name_power() -> str:
@@ -755,6 +797,8 @@ def phase_serve(dev, kernels, card):
         outs.append(out["occ_logits"])
     launches = launch_count(mghs_pool_cuda)
     replayed = replayed_frames()
+    unet_launches = check_unet_launches(kernels, cfg, "dhd_s_serve",
+                                        replayed)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kernels["mghs_pool_cuda"]["launches_by_path"] = {
         "dhd_s_serve": launches}
@@ -780,8 +824,8 @@ def phase_serve(dev, kernels, card):
           f"{SERVE_REL_TOL}), argmax agreement {agree:.6f} (min "
           f"{SERVE_ARGMAX_MIN})")
     print(f"phase 3 ok: DHD-S bf16 served 5 frames, occ_logits {want}, "
-          f"finite; mghs_pool_cuda launches {launches}, frames replayed "
-          f"{replayed}; "
+          f"finite; mghs_pool_cuda launches {launches}, unet_epilogue_cuda "
+          f"{unet_launches}, frames replayed {replayed}; "
           f"{statistics.median(frame_ms):.2f} ms/frame median "
           f"(frames {', '.join(f'{t:.2f}' for t in frame_ms)}; warm-up "
           f"{warm_ms:.1f} ms), peak memory {peak_gb:.2f} GB; plain pooling "
@@ -1402,6 +1446,206 @@ def phase_layer_norm(dev, kernels, ptxas):
                                   "layer_norm_kernel")), flush=True)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    nan = torch.isnan(a)
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.view(ints)[~nan], b.view(ints)[~nan]))
+
+
+def graphed(fn):
+    """``fn`` captured into a CUDA graph after a warm-up call: (the
+    graph's replay, the output it writes, the nodes the graph holds, its
+    kernels, copies and sets, counted in its ``cudaGraphDebugDotPrint``
+    dump: a count that no profiler can drop)."""
+    import tempfile
+
+    from dhd_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()             # before the dump lets the graph go
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        graph.debug_dump(f"{tmp}/graph.dot")
+        with open(f"{tmp}/graph.dot") as f:
+            nodes = re.findall(r'"graph_\d+_node_\d+"\[', f.read())
+    return graph.replay, out, len(nodes)
+
+
+def unet_epilogue_cases(dev, g):
+    """The epilogues' calls in a served base-64 UNet at 200x200, bf16, B=1:
+    (label, calls a UNet, kernel call, plain call, bytes).  Inputs are
+    unit-normal with a NaN every 97th element, the BatchNorms' statistics
+    and affine drawn away from their init."""
+    from dhd_tpu_torch.ops.unet_epilogue import (bn_relu_cuda, bn_relu_plain,
+                                                 up_place_cuda,
+                                                 up_place_plain)
+
+    cl, bf16 = torch.channels_last, torch.bfloat16
+
+    def nhwc(c, side):
+        x = torch.randn((1, c, side, side), generator=g, device=dev)
+        x.view(-1)[::97] = float("nan")
+        return x.to(bf16).contiguous(memory_format=cl)
+
+    cases = []
+    # (C, side, BN+ReLU calls a UNet of their own; the level's skip and
+    # pool: inc, down1-3 write theirs, down4 none)
+    for c, side, own, skip in ((64, 200, 3, 1), (128, 100, 3, 1),
+                               (256, 50, 3, 1), (512, 25, 3, 1),
+                               (1024, 12, 2, 0)):
+        x = nhwc(c, side)
+        terms = (torch.rand(c, generator=g, device=dev) * 2 - 1,
+                 torch.rand(c, generator=g, device=dev) * 1.8 + 0.2,
+                 torch.rand(c, generator=g, device=dev) + 0.5,
+                 torch.rand(c, generator=g, device=dev) - 0.5, 1e-5)
+        n = x.numel() * 2
+        cases.append((f"bn_relu {c}x{side}", own,
+                      lambda x=x, t=terms: bn_relu_cuda(x, *t)[0],
+                      lambda x=x, t=terms: bn_relu_plain(x, *t)[0],
+                      2 * n + 16 * c))
+        if skip:
+            cat = torch.empty((1, 2 * c, side, side), dtype=bf16, device=dev,
+                              memory_format=cl).zero_()
+            pooled_n = c * (side // 2) ** 2 * 2
+            cases.append((
+                f"bn_relu+skip+pool {c}x{side}", skip,
+                lambda x=x, t=terms, cat=cat: bn_relu_cuda(
+                    x, *t, out=cat, pool=True),
+                lambda x=x, t=terms, cat=cat: bn_relu_plain(
+                    x, *t, out=cat, pool=True),
+                2 * n + pooled_n + 16 * c))
+    # the Ups: the transposed conv's output (C at h), the skip side
+    for c, h, side in ((512, 24, 25), (256, 50, 50), (128, 100, 100),
+                       (64, 200, 200)):
+        up = nhwc(c, h)
+        bias = torch.randn(c, generator=g, device=dev).to(bf16)
+        cat = torch.empty((1, 2 * c, side, side), dtype=bf16, device=dev,
+                          memory_format=cl).zero_()
+        cases.append((f"up_place {c}x{h}->{side}", 1,
+                      lambda up=up, b=bias, cat=cat: up_place_cuda(
+                          up, b, cat),
+                      lambda up=up, b=bias, cat=cat: up_place_plain(
+                          up, b, cat.clone(memory_format=cl)),
+                      2 * up.numel() + 2 * c * side * side + 2 * c))
+    return cases
+
+
+def phase_unet_epilogue(dev, kernels, ptxas):
+    """The UNet epilogues against their plain versions (the modules' chain)
+    at a served UNet's shapes, then whole UNets of the three models."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.nn.unet import UNet
+    from dhd_tpu_torch.ops.unet_epilogue import COUNTER
+
+    kern = unet_kern(kernels)
+    g = torch.Generator(device=dev).manual_seed(28)
+    bf16 = torch.bfloat16
+    per_unet = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+                "plain_launches": 0}
+    for label, calls, run, plain, nbytes in unet_epilogue_cases(dev, g):
+        got, want = run(), plain()
+        before = profiling.kernel_launches()[COUNTER]
+        run()
+        torch.cuda.synchronize()
+        check(profiling.kernel_launches()[COUNTER] == before + 1,
+              f"{label}: kernel launch not counted")
+        got = [t for t in (got if isinstance(got, tuple) else (got,))
+               if t is not None]
+        want = [t for t in (want if isinstance(want, tuple) else (want,))
+                if t is not None]
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"unet_epilogue {label}: not bit for bit the chain")
+        ms, plain_ms = time_ms(run), time_ms(plain)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        share = bound_ms / ms
+        launches, plain_launches = graphed(run)[2], graphed(plain)[2]
+        kern["shapes"][label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": share,
+            "per_unet": calls, "launches": launches,
+            "plain_launches": plain_launches, "max_abs_err": 0.0}
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound_ms), ("launches", launches),
+                       ("plain_launches", plain_launches)):
+            per_unet[key] += calls * v
+        print(f"phase 28 ok: unet_epilogue {label} bf16: bit for bit the "
+              f"chain (NaNs included); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({share:.3f} of "
+              f"the kernel's device time; bytes, "
+              f"{nbytes / 1e6:.2f} MB); launches {launches} against the "
+              f"chain's {plain_launches}; {calls} a UNet", flush=True)
+    check(per_unet["launches"] == UNET_LAUNCHES,
+          f"{per_unet['launches']} launches a UNet, want {UNET_LAUNCHES}")
+    kern.update({k: per_unet[k] for k in ("ms", "plain_ms", "bound_ms")})
+    kern["bound_by"] = "bytes"
+    print(f"phase 28: unet_epilogue_cuda a UNet ({UNET_LAUNCHES} launches "
+          f"against the chain's {per_unet['plain_launches']}): kernel "
+          f"{per_unet['ms']:.4f} ms, plain {per_unet['plain_ms']:.4f} ms, "
+          f"bound {per_unet['bound_ms']:.4f} ms; ptxas "
+          + "; ".join(ptxas.get("unet_epilogue", [])), flush=True)
+
+    for preset in ("dhd_s", "dhd_m", "dhd_l"):
+        cfg = get_config(preset)
+        c_bev = cfg.vt.out_channels * (cfg.num_frames
+                                       - (1 if cfg.stereo else 0))
+        shapes = [(s * c_bev, out) for s, out in
+                  zip(cfg.vt.slab_sizes, cfg.voxel_encoder_out)]
+        if cfg.bev_encoder == "unet":
+            shapes.append((c_bev, cfg.bev_unet_out))
+        frame = {"ms": 0.0, "plain_ms": 0.0, "launches": 0,
+                 "plain_launches": 0}
+        for n_in, n_out in shapes:
+            torch.manual_seed(0)
+            m = UNet(n_in, n_out, base=cfg.unet_base).eval().to(dev, bf16)
+            x = torch.randn((1, n_in, cfg.vt.y.size, cfg.vt.x.size),
+                            generator=g, device=dev).to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            # each path captured into a CUDA graph, as a served frame
+            # replays it: the device's time without the host's dispatch
+            with torch.no_grad():
+                before = profiling.kernel_launches()[COUNTER]
+                run, y_k, launches = graphed(lambda m=m, x=x: m(x))
+                check(profiling.kernel_launches()[COUNTER]
+                      == before + 2 * UNET_LAUNCHES,
+                      f"{preset} UNet({n_in}, {n_out}): not "
+                      f"{UNET_LAUNCHES} launches a call")
+                plain, y_p, plain_launches = graphed(
+                    lambda m=m, x=x: m._forward_modules(x))
+            run()
+            plain()
+            torch.cuda.synchronize()
+            check(same_bits(y_k, y_p),
+                  f"{preset} UNet({n_in}, {n_out}): the kernel path is not "
+                  f"bit for bit the modules' chain")
+            ms, plain_ms = time_ms(run, iters=20), time_ms(plain, iters=20)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("launches", launches),
+                           ("plain_launches", plain_launches)):
+                frame[key] += v
+            print(f"phase 28 ok: {preset} UNet({n_in}, {n_out}) bf16 at "
+                  f"{cfg.vt.y.size}x{cfg.vt.x.size}, replayed from a CUDA "
+                  f"graph: the kernel path bit for bit the chain; {ms:.4f} "
+                  f"ms ({launches} launches) against {plain_ms:.4f} ms "
+                  f"({plain_launches})", flush=True)
+            del m, run, plain, y_k, y_p
+        kern["shapes"][f"{preset}_unets"] = frame
+        print(f"phase 28: {preset}'s {len(shapes)} UNets a frame: "
+              f"{frame['ms']:.4f} ms, {frame['launches']} launches, "
+              f"against the chain's {frame['plain_ms']:.4f} ms, "
+              f"{frame['plain_launches']}; epilogues launch-weighted "
+              f"{len(shapes) * per_unet['ms']:.4f} ms against "
+              f"{len(shapes) * per_unet['plain_ms']:.4f} (bound "
+              f"{len(shapes) * per_unet['bound_ms']:.4f})", flush=True)
+    torch.cuda.empty_cache()
+
+
 def stream_kernels(cfg) -> dict:
     """The kernels a streamed frame of ``cfg`` launches, with their launches
     per frame: B1 and B3 once; with a Swin backbone B4 once per block and
@@ -1466,6 +1710,8 @@ def phase_stream(dev, kernels, card, preset="dhd_m"):
         outs.append(out["occ_logits"])
     launches = {fn.__name__: launch_count(fn) for fn in per_frame}
     replayed = replayed_frames()
+    launches["unet_epilogue_cuda"] = check_unet_launches(kernels, cfg, path,
+                                                         replayed)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for fn, k in per_frame.items():
         kernels[fn.__name__].setdefault("launches_by_path", {})[path] = \
@@ -3519,6 +3765,7 @@ def main() -> int:
     phase_ddp(dev, kernels, card)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
         phase_train_ann_file(dev, card, root)
+    phase_unet_epilogue(dev, kernels, ptxas)
     for kern in kernels.values():
         kern["launches"] = sum(kern["launches_by_path"].values())
     print(json.dumps({"kernels": list(kernels.values())}))

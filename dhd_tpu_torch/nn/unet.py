@@ -3,14 +3,36 @@
 
 Encoder base..16*base via maxpool + DoubleConv, decoder via ConvTranspose2d
 (k2 s2) + skip concat + DoubleConv, 1x1 out conv.
+
+On the card, in eval and where autograd records nothing, the passes
+between the convolutions run as the epilogue kernels of
+``ops/unet_epilogue.py`` (:meth:`UNet._forward_fused`), with the numbers
+of the modules' chain; everywhere else the modules run as they are.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dhd_tpu_torch.ops.grad_mode import records_grad
+from dhd_tpu_torch.ops.unet_epilogue import bn_relu_cuda, up_place_cuda
+
 from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
+
+
+def _terms(bn: nn.BatchNorm2d):
+    """An eval BatchNorm's running statistics, affine and epsilon."""
+    return bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` channels-last, as the epilogue kernels take it: cuDNN's convs
+    keep a channels-last input's layout, so on the card this copies
+    nothing; a trace's shape-only convs may not."""
+    return x.contiguous(memory_format=torch.channels_last)
 
 
 class DoubleConv(nn.Module):
@@ -25,6 +47,18 @@ class DoubleConv(nn.Module):
     def forward(self, x):
         return self.double_conv(x)
 
+    def fused(self, x: torch.Tensor, out: Optional[torch.Tensor] = None,
+              pool: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The forward with each BatchNorm and its ReLU as one kernel; the
+        second writes into ``out``'s first channels and with ``pool`` also
+        pools (:func:`~dhd_tpu_torch.ops.unet_epilogue.bn_relu_cuda`, whose
+        (out, pooled) it returns)."""
+        conv1, bn1, _, conv2, bn2, _ = self.double_conv
+        y, _ = bn_relu_cuda(_nhwc(conv1(x)), *_terms(bn1))
+        return bn_relu_cuda(_nhwc(conv2(y)), *_terms(bn2), out=out,
+                            pool=pool)
+
 
 class Down(nn.Module):
     """2x2 max pool, stride 2, then DoubleConv."""
@@ -36,6 +70,10 @@ class Down(nn.Module):
 
     def forward(self, x):
         return self.maxpool_conv(x)
+
+    def fused(self, pooled: torch.Tensor, **kw):
+        """:meth:`DoubleConv.fused` of an input the level above pooled."""
+        return self.maxpool_conv[1].fused(pooled, **kw)
 
 
 class Up(nn.Module):
@@ -55,6 +93,18 @@ class Up(nn.Module):
             x1 = F.pad(x1, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
         return self.conv(torch.cat([x2, x1], dim=1))
 
+    def fused(self, x1: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
+        """The forward into ``cat``, the concatenation's buffer whose first
+        half already holds the skip: the transposed conv without its bias,
+        then the bias, pad and copy as one kernel into the second half
+        (:func:`~dhd_tpu_torch.ops.unet_epilogue.up_place_cuda`)."""
+        up = self.up
+        x1 = _nhwc(F.conv_transpose2d(
+            x1, up.weight.to(x1.dtype), None, up.stride, up.padding,
+            up.output_padding, up.groups, up.dilation))
+        up_place_cuda(x1, up.bias.to(x1.dtype), cat)
+        return self.conv.fused(cat)[0]
+
 
 class _OutConv(nn.Module):
     def __init__(self, cin: int, cout: int):
@@ -71,7 +121,7 @@ class UNet(nn.Module):
 
     def __init__(self, n_channels: int, n_classes: int, base: int = 64):
         super().__init__()
-        b = base
+        b = self.base = base
         self.inc = DoubleConv(n_channels, b)
         self.down1 = Down(b, b * 2)
         self.down2 = Down(b * 2, b * 4)
@@ -84,6 +134,12 @@ class UNet(nn.Module):
         self.outc = _OutConv(b, n_classes)
 
     def forward(self, x):
+        if self._takes_kernels(x):
+            return self._forward_fused(x)
+        return self._forward_modules(x)
+
+    def _forward_modules(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` through the modules, pass by pass."""
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)
@@ -92,3 +148,34 @@ class UNet(nn.Module):
         x = self.up2(x, x3)
         x = self.up3(x, x2)
         return self.outc(self.up4(x, x1))
+
+    def _takes_kernels(self, x: torch.Tensor) -> bool:
+        """Whether a call runs the epilogue kernels: on a CUDA tensor, in
+        eval (the running statistics), where autograd records nothing (the
+        kernels have no backward), at widths they take (multiples of 8:
+        every base the presets give but the tiny ones' 4)."""
+        return (x.is_cuda and not self.training and self.base % 8 == 0
+                and not records_grad(x, *self.parameters()))
+
+    def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` through the epilogue kernels, channels-last.
+        Each level's concatenation buffer is allocated ahead: the level's
+        DoubleConv writes its skip into the first half, and its max pool
+        for the next level beside it, and the Up its upsampled half into
+        the second.  Nothing else is written: no skip, pad or cat tensor."""
+        x = _nhwc(x)
+        n, _, h, w = x.shape
+        cats = []
+        for level in range(4):
+            cats.append(torch.empty(
+                (n, 2 * self.base << level, h, w), dtype=x.dtype,
+                device=x.device, memory_format=torch.channels_last))
+            h, w = h // 2, w // 2
+        for enc, cat in zip((self.inc, self.down1, self.down2, self.down3),
+                            cats):
+            _, x = enc.fused(x, out=cat, pool=True)
+        x, _ = self.down4.fused(x)
+        for up, cat in zip((self.up1, self.up2, self.up3, self.up4),
+                           reversed(cats)):
+            x = up.fused(x, cat)
+        return self.outc(x)

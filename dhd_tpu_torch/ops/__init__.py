@@ -12,6 +12,8 @@ from dhd_tpu_torch.ops.mghs_pool_cuda import (mghs_pool_cuda,
 from dhd_tpu_torch.ops.segment_sum import (segment_sum_pooling,
                                            sorted_segment_sum,
                                            sorted_segment_sum_plain)
+from dhd_tpu_torch.ops.unet_epilogue import (bn_relu_cuda, bn_relu_plain,
+                                             up_place_cuda, up_place_plain)
 from dhd_tpu_torch.ops.voxel_pool import (PoolIndices, PoolPlan, bev_pool,
                                           bev_pool_v2, build_pool_plan,
                                           compute_pool_indices, mghs_pool)
@@ -20,7 +22,8 @@ from dhd_tpu_torch.ops.window_attention import (window_attention_cuda,
                                                 window_attention_plain)
 
 __all__ = ["PoolIndices", "PoolPlan", "bev_pool", "bev_pool_v2",
-           "build_cv_plan", "build_cv_static", "build_pool_plan",
+           "bn_relu_cuda", "bn_relu_plain", "build_cv_plan",
+           "build_cv_static", "build_pool_plan",
            "compute_pool_indices", "cv_cost_plain", "cv_plan_from_static",
            "fused_layer_norm_cuda", "grid_sample_2d", "layer_norm_plain",
            "mghs_pool", "mghs_pool_cuda", "mghs_pool_plan_plain", "render",
@@ -28,4 +31,5 @@ __all__ = ["PoolIndices", "PoolPlan", "bev_pool", "bev_pool_v2",
            "segment_sum_pooling", "sorted_segment_sum",
            "sorted_segment_sum_plain", "stereo_cost_volume",
            "stereo_cost_volume_cuda", "stereo_reproject_grid",
+           "up_place_cuda", "up_place_plain",
            "window_attention_cuda", "window_attention_plain"]

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "dhd_tpu_torch"
 SOURCES = ("mghs_pool", "segment_sum", "cost_volume", "layer_norm",
-           "window_attention")            # every csrc/<name>.cu
+           "window_attention", "unet_epilogue")   # every csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,17 +83,20 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def kernel_op(name: str, launch: Callable, fake: Callable) -> Callable:
+def kernel_op(name: str, launch: Callable, fake: Callable,
+              mutates_args: Tuple[str, ...] = ()) -> Callable:
     """``launch`` (a kernel's launch on checked CUDA tensors, its type
     annotations the op's schema) registered as the custom op
     ``dhd_tpu_torch::<name>`` for CUDA tensors, with ``fake`` giving its
-    outputs from the input shapes alone.  Returns the call the wrapper
+    outputs from the input shapes alone; ``mutates_args`` names the
+    arguments the kernel writes into.  Returns the call the wrapper
     makes: under a trace (``torch.export``) the op, which an exported
     program records and runs on the card; otherwise ``launch`` itself,
     sparing a served frame the op's Python dispatch on each of its
     launches (~80 a DHD-L frame)."""
     op = torch.library.custom_op(f"dhd_tpu_torch::{name}", launch,
-                                 mutates_args=(), device_types="cuda")
+                                 mutates_args=mutates_args,
+                                 device_types="cuda")
     op.register_fake(fake)
 
     def call(*args):

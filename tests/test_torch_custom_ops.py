@@ -17,11 +17,32 @@ from dhd_tpu_torch.profiling import kernel_launches
 
 BF16 = torch.bfloat16
 OPS = ("mghs_pool", "pool_plan", "stereo_cost", "window_attention",
-       "layer_norm")
+       "layer_norm", "unet_bn_relu", "unet_up_place")
 
 
 def _empty(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="cuda")
+
+
+def _nhwc(*shape, dtype=BF16):
+    return torch.empty(shape, dtype=dtype, device="cuda",
+                       memory_format=torch.channels_last)
+
+
+def _unet_bn_relu():
+    cat = _nhwc(1, 128, 25, 25)
+    out, pooled = O.bn_relu_cuda(_nhwc(1, 64, 25, 25), *[_empty(64)] * 4,
+                                 1e-5, out=cat, pool=True)
+    assert out is cat and pooled.is_contiguous(
+        memory_format=torch.channels_last)
+    return pooled, ((1, 64, 12, 12), BF16)
+
+
+def _unet_up_place():
+    cat = _nhwc(1, 128, 25, 25)
+    assert O.up_place_cuda(_nhwc(1, 64, 24, 24), _empty(64, dtype=BF16),
+                           cat) is cat
+    return cat, ((1, 128, 25, 25), BF16)
 
 
 def _layer_norm():
@@ -72,7 +93,8 @@ def _mghs_pool():
 
 CASES = {"layer_norm": _layer_norm, "window_attention": _window_attention,
          "stereo_cost": _stereo_cost, "pool_plan": _pool_plan,
-         "mghs_pool": _mghs_pool}
+         "mghs_pool": _mghs_pool, "unet_bn_relu": _unet_bn_relu,
+         "unet_up_place": _unet_up_place}
 
 
 def test_every_kernel_is_an_op():
@@ -102,3 +124,12 @@ def test_a_wrong_input_is_refused_before_the_op():
         with pytest.raises(ValueError, match="uf"):
             O.stereo_cost_volume_cuda(prev, prev, _empty(6, 8, 16, 40),
                                       _empty(6, 8, 16, 44))
+        with pytest.raises(ValueError, match="channels-last"):
+            O.bn_relu_cuda(_empty(1, 64, 25, 25, dtype=BF16),
+                           *[_empty(64)] * 4, 1e-5)
+        with pytest.raises(ValueError, match="out"):
+            O.bn_relu_cuda(_nhwc(1, 64, 25, 25), *[_empty(64)] * 4, 1e-5,
+                           out=_nhwc(1, 32, 25, 25))
+        with pytest.raises(ValueError, match="out"):
+            O.up_place_cuda(_nhwc(1, 64, 24, 24), _empty(64, dtype=BF16),
+                            _nhwc(1, 128, 23, 23))
