@@ -21,25 +21,27 @@ unshifted).  Its variants ask what the shifted blocks' mask loads cost:
 
 Prints the card, ptxas's report of each variant's ``<32, 9>``
 instantiation, then one line per shape: each variant's device ms
-(``chip_smoke.time_ms``).
+(:func:`time_ms`).
 
 ``--kernel cv``: the stereo cost-volume kernel (B3), ``cost_volume.cu``,
-at DHD-M and DHD-L (phases 5 and 11's inputs), with ptxas's report of its
-bf16 instantiations.  ``base`` is held to phase 5's bar against
-``cv_cost_plain``; ``sametap`` gathers every sample's taps from the map's
-first pixel (all L1 hits): what the kernel costs without its tap traffic
-(timing only).
+at DHD-M and DHD-L (:func:`cv_inputs`), with ptxas's report of its bf16
+instantiations.  ``base`` is held against ``cv_cost_plain`` to the
+tolerance the TPU kernel held against XLA (``CV_ATOL``, ``CV_RTOL``, on
+the probabilities); ``sametap`` gathers every sample's taps from the
+map's first pixel (all L1 hits): what the kernel costs without its tap
+traffic (timing only).
 
 ``--kernel segsum``: the sorted segment-sum (B2), ``segment_sum.cu``, at
-phase 14's cases.  ``base`` is held to phase 14's bar against
-``sorted_segment_sum_plain``; ``nofix`` skips the second pass and
-``nostore`` stores no output rows (both timing only): what each costs.
+:func:`segsum_cases`.  ``base`` is held against
+``sorted_segment_sum_plain`` (one bf16 ulp plus 2^-20 of the summed
+|terms|); ``nofix`` skips the second pass and ``nostore`` stores no
+output rows (both timing only): what each costs.
 
 ``--kernel pool``: the fused MGHS pooling (B1), ``mghs_pool.cu``, at the
-inputs of phases 2, 6 and 11 (DHD-S, DHD-M, DHD-L) and the hot pillar
-(``chip_smoke.pool_case``), with ptxas's report of its first pass.
-``base`` is held to phase 2's bar (one bf16 ulp, or at DHD-L one ulp
-plus 2^-20 of the terms) against ``mghs_pool_plan_plain``;
+served plans of DHD-S, DHD-M and DHD-L and the hot pillar
+(:func:`pool_case`), with ptxas's report of its first pass.  ``base`` is
+held against ``mghs_pool_plan_plain`` (one bf16 ulp, or at DHD-L one ulp
+plus 2^-20 of the terms);
 ``nopoints`` skips the point walk and writes only zero rows: the write
 floor; ``nostore`` walks the points and stores nothing in the first pass
 (both timing only); ``rows2x`` keeps twice as many feature rows in
@@ -48,13 +50,21 @@ for each piece size (the most points a warp sums), ``--lanes`` at each
 forced (channels a lane)x(lanes a point), both held to the bar.  Each
 line ends with ``zero_``: ``Tensor.zero_`` of the same vox and bev, the
 card's own rate of writing those bytes.
+
+The cases' inputs, the bars and the timers here are shared with the
+port's ``cuda``-marked tests (``tests/test_torch_cuda.py``), which hold
+the kernels at the same inputs.
 """
 import argparse
 import ctypes
 import pathlib
+import re
+import statistics
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -97,9 +107,319 @@ SOURCES = {
 }
 
 
+SLEEP_CYCLES = 2_000_000    # ~1 ms of device clock ahead of each timed call
+POOL_ULP_TOL = 1            # B1 vs plain in bf16: fp32 sum order only
+CV_ATOL, CV_RTOL = 2e-5, 1e-4   # B3 vs plain probabilities: the tolerance
+#                                 the TPU kernel held against XLA
+TERM_TOL = 2.0 ** -20       # per element: 8 fp32 ulps of the magnitudes of
+#                             the terms it is summed from (fp32 sum order)
+SEGSUM_IDS = 1.5            # B2's ids uniform over [0, 1.5 V), as the CLI
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(msg)
+
+
+def smi_name_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str) -> list:
+    """nvcc's ``-Xptxas -v`` report, one line per kernel: its mangled name
+    (template arguments included), registers, shared memory and spills."""
+    found: dict = {}
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and ("registers" in ln or "spill" in ln):
+            found.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return [f"{k}: {', '.join(v)}" for k, v in found.items()]
+
+
+def short_ptxas(lines: list, kernel: str) -> list:
+    """The ptxas lines of ``kernel``'s instantiations, each named by its
+    template arguments (``<32, 9>``, ``<13__nv_bfloat16, 256, 1>``)."""
+    out = []
+    for ln in lines:
+        m = re.match(rf".*{kernel}I(.*?)EEvP.*?: (.*)", ln)
+        if m:
+            args = re.sub(r"Li(\d+)E?", r", \1", m.group(1)).strip(", ")
+            out.append(f"<{args}>: {m.group(2)}")
+    return out
+
+
+def time_ms(fn, iters: int = 30, warmup: int = 3, busy: bool = True
+            ) -> float:
+    """Median time of one call, by CUDA events around each call.  With
+    ``busy`` a sleep kernel ahead of the start event keeps the device busy
+    while the host enqueues the call, so the time between the events is
+    the device's alone.  Without it the device idles until the call's
+    first kernel arrives, and the time also holds the host's work before
+    that launch (the wrapper's Python, the dispatch, the launch itself)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        else:
+            torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Host time of one call in microseconds, from its start to its
+    return, with the device kept busy by a sleep kernel so that the call
+    never waits for it: what the call costs the host per launch.  The
+    least of ``iters`` calls, its own cost: the median follows whatever
+    else the machine's shared cores run (2-5x between runs on one card)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * min(times)
+
+
+def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def bf16_ulp_at(x: torch.Tensor) -> float:
+    """One bf16 ulp at the peak magnitude of ``x``."""
+    return 2.0 ** (float(torch.floor(torch.log2(x.float().abs().max()))) - 7)
+
+
+def sum_error_share(y_k, y_p, terms, atol=None) -> float:
+    """The largest |y_k - y_p| as a share of one bf16 ulp of y_p (or of
+    ``atol``) plus ``TERM_TOL`` of ``terms``, the summed magnitudes behind
+    each output."""
+    yp = y_p.float()
+    ulp = atol if atol is not None else torch.where(
+        yp == 0, 0.0, torch.exp2(torch.floor(torch.log2(yp.abs())) - 7))
+    tol = ulp + TERM_TOL * terms.float()
+    diff = (y_k.float() - yp).abs()
+    return float(torch.where(diff > 0, diff / tol, 0.0).max())
+
+
+def stream_frames(cfg, n_frames: int, seed: int = 0):
+    """Streamed frames of one synthetic rig: new random images per frame,
+    the ego 0.5 m further along +x each frame."""
+    from dhd_tpu_torch.data import synthetic_batch
+
+    rig = synthetic_batch(cfg, batch_size=1, seed=seed, with_gt=False)
+    frames = []
+    for k in range(n_frames):
+        e2g = rig["ego2global"][:, 0].copy()
+        e2g[..., 0, 3] += 0.5 * k
+        frames.append({
+            "imgs": np.random.default_rng(100 + k).normal(
+                0, 1, rig["imgs"][:, 0].shape).astype(np.float32),
+            "sensor2ego": rig["sensor2ego"][:, 0], "ego2global": e2g,
+            "intrins": rig["intrins"][:, 0],
+            "post_rots": rig["post_rots"][:, 0],
+            "post_trans": rig["post_trans"][:, 0], "bda": rig["bda"]})
+    return frames
+
+
+def pool_indices(dev, preset):
+    """The (vt, PoolIndices, cams shape) that :func:`pool_case` plans from:
+    DHD-S's rig, DHD-M's or DHD-L's streamed frame (its frame-relative
+    sensor2keyego), or ``hot``: DHD-S's with the first 10% of the frustum
+    points (in (B, N, D, fH, fW) order) moved into one pillar near the
+    ego, their heights kept."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.geometry import create_frustum, frustum_to_ego
+    from dhd_tpu_torch.models.dhd import GEOM_KEYS
+    from dhd_tpu_torch.models.dhd_stereo import stream_geometry
+    from dhd_tpu_torch.ops import compute_pool_indices
+
+    cfg = get_config("dhd_s" if preset == "hot" else preset)
+    vt = cfg.vt
+
+    def geom(k):
+        return torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32,
+                               device=dev)
+
+    if cfg.temporal:
+        batch = stream_frames(cfg, 1)[0]
+        s2k = stream_geometry(geom("sensor2ego"), geom("ego2global"))[0]
+        batch = dict(batch, sensor2keyego=s2k.cpu())
+    else:
+        batch = synthetic_batch(cfg, batch_size=1, seed=0, with_gt=False)
+    frustum = create_frustum(vt.depth, vt.input_size, vt.downsample, vt.sid,
+                             device=dev)
+    coords = frustum_to_ego(frustum, *(geom(k) for k in GEOM_KEYS))
+    if preset == "hot":
+        flat = coords.clone().view(-1, 3)
+        n_hot = flat.shape[0] // 10
+        flat[:n_hot, 0] = vt.x.lower + (vt.x.size // 2 + 0.5) * vt.x.interval
+        flat[:n_hot, 1] = vt.y.lower + (vt.y.size // 2 + 0.5) * vt.y.interval
+        coords = flat.view(coords.shape)
+    return vt, compute_pool_indices(coords, vt), tuple(coords.shape[:-1])
+
+
+def pool_case(dev, preset):
+    """B1's inputs at the geometry of ``preset``: DHD-S (the single-frame
+    plan, D=44), DHD-M or DHD-L (the streamed frame's plan, as the
+    streaming step pools it, D=88), or ``hot`` (:func:`pool_indices`);
+    softmaxed bf16 depth, unit-normal features and one-hot band gates (a
+    quarter of the pixels gated off) from seed 1.  Returns the config, the
+    plan and the kernel's arguments."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.data import synthetic_batch
+    from dhd_tpu_torch.models import (build_batch_pool_plan,
+                                      build_stream_pool_plan)
+    from dhd_tpu_torch.ops import build_pool_plan
+
+    cfg = get_config("dhd_s" if preset == "hot" else preset)
+    vt = cfg.vt
+    if preset == "hot":
+        _, idx, shape = pool_indices(dev, "hot")
+        plan = build_pool_plan(idx, vt, shape)
+    elif cfg.temporal:
+        plan = build_stream_pool_plan(cfg, stream_frames(cfg, 1)[0],
+                                      device=dev)
+    else:
+        rig = synthetic_batch(cfg, batch_size=1, seed=0, with_gt=False)
+        plan = build_batch_pool_plan(cfg, rig, device=dev)
+    fh, fw = vt.feat_size
+    px = (1, cfg.num_cams, fh, fw)
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    depth = torch.softmax(3 * torch.randn(px + (vt.D,), generator=g,
+                                          device=dev), dim=-1).to(bf16)
+    feat = torch.randn(px + (vt.out_channels,), generator=g,
+                       device=dev).to(bf16)
+    band = torch.randint(0, 4, px, generator=g, device=dev)
+    band_mask = torch.nn.functional.one_hot(band, 4)[..., :3].to(bf16)
+    return cfg, plan, depth, feat, band_mask
+
+
+def pillar_histogram(plan) -> dict:
+    """Points per non-empty pillar: mean, p99, max, and the pillars of more
+    than 256 points (one warp's share of B1)."""
+    n = (plan.starts[1:] - plan.starts[:-1]).float()
+    n = n[n > 0]
+    return {"pillars": int(n.numel()), "mean": float(n.mean()),
+            "p99": float(torch.quantile(n, 0.99)), "max": int(n.max()),
+            "over_256": int((n > 256).sum())}
+
+
+def cv_inputs(dev, preset):
+    """B3's inputs at the geometry of ``preset``: the plan of a rig moving
+    0.5 m forward with 0.6 deg of yaw, and rectified bf16 stereo features
+    of the preset's width (DHD-M: ResNet-50 layer1, C=256; DHD-L: Swin-B
+    stage 0, C=128).  Returns prev, curr, uf, vf and the preset's bias."""
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.geometry import create_frustum, rigid_relative
+    from dhd_tpu_torch.models import stereo_feat_channels, stream_geometry
+    from dhd_tpu_torch.ops import build_cv_plan
+
+    cfg = get_config(preset)
+    vt = cfg.vt
+    hs, ws = vt.input_size[0] // 4, vt.input_size[1] // 4
+    prev_f, curr_f = stream_frames(cfg, 2)
+    # 0.5 m forward and 0.6 deg of yaw between the frames
+    yaw = np.deg2rad(0.6)
+    e2g = curr_f["ego2global"].copy()
+    e2g[..., :2, :2] = [[np.cos(yaw), -np.sin(yaw)],
+                        [np.sin(yaw), np.cos(yaw)]]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    _, c2g_prev = stream_geometry(t(prev_f["sensor2ego"]),
+                                  t(prev_f["ego2global"]))
+    _, c2g_curr = stream_geometry(t(curr_f["sensor2ego"]), t(e2g))
+    k2s = rigid_relative(c2g_prev, c2g_curr)
+    frustum = create_frustum(vt.depth, vt.input_size, 4, vt.sid, device=dev)
+    uf, vf = build_cv_plan(frustum, k2s, t(curr_f["intrins"]),
+                           t(curr_f["post_rots"]), t(curr_f["post_trans"]),
+                           hs, ws)
+    c = stereo_feat_channels(cfg)
+    g = torch.Generator(device=dev).manual_seed(5)
+    prev, curr = (torch.relu(torch.randn((uf.shape[0], hs, ws, c),
+                                         generator=g, device=dev)
+                             ).to(torch.bfloat16)
+                  for _ in range(2))
+    return prev, curr, uf, vf, cfg.depthnet_cfg.bias
+
+
+def swin_stage_shapes(cfg):
+    """Per Swin stage of ``cfg`` at B*N images: (tokens h, w, padded hp, wp,
+    C, heads, blocks)."""
+    ws = cfg.swin_window
+    h, w = cfg.vt.input_size[0] // 4, cfg.vt.input_size[1] // 4
+    out = []
+    for i, depth in enumerate(cfg.swin_depths):
+        out.append((h, w, -(-h // ws) * ws, -(-w // ws) * ws,
+                    cfg.swin_embed_dims * 2 ** i, cfg.swin_num_heads[i],
+                    depth))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return out
+
+
+def segsum_cases():
+    """B2's cases: (label, P, C, V, in dtype, out dtype, ids) with the
+    ``--what pool`` shapes of DHD-S and DHD-L, P = N*D*fH*fW points of C
+    channels into V = Dz*Dy*Dx voxels."""
+    from dhd_tpu_torch import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = {}
+    for preset in ("dhd_s", "dhd_l"):
+        vt = get_config(preset).vt
+        fh, fw = vt.feat_size
+        shapes[preset] = (get_config(preset).num_cams * vt.D * fh * fw,
+                          vt.out_channels,
+                          vt.z_fine.size * vt.y.size * vt.x.size)
+    p, c, v = shapes["dhd_s"]
+    return ([("dhd_s", *shapes["dhd_s"], bf16, bf16, "uniform"),
+             ("dhd_l", *shapes["dhd_l"], bf16, bf16, "uniform"),
+             ("dhd_s_fp32", p, c, v, f32, f32, "uniform"),
+             ("dhd_s_hot", p, c, v, bf16, bf16, "hot"),
+             ("dhd_s_negative", p, c, v, bf16, bf16, "negative")]
+            + [(f"c{cc}", 65536, cc, 100000, bf16, bf16, "uniform")
+               for cc in (8, 96, 160, 256)])
+
+
+def segsum_ids(rng, p, v, layout):
+    """Ids uniform over [0, 1.5 V); 'hot' puts 10% of the points on one
+    id (tests/test_pallas_pool.py), 'negative' draws from [-V/4, 1.5 V)."""
+    seg = rng.integers(0, int(SEGSUM_IDS * v), p)
+    if layout == "hot":
+        seg[: p // 10] = v // 2
+    elif layout == "negative":
+        seg = rng.integers(-v // 4, int(SEGSUM_IDS * v), p)
+    return seg.astype(np.int32)
+
+
 def build(kernel, names):
     """nvcc for each variant of `kernel`, all at once; the library of each."""
-    import chip_smoke
     from dhd_tpu_torch.ops import cuda_build
 
     source, ptxas = SOURCES[kernel]
@@ -125,8 +445,8 @@ def build(kernel, names):
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         if ptxas is not None:
             print(f"{name}: " + "; ".join(
-                ln for ln in chip_smoke.short_ptxas(
-                    chip_smoke.ptxas_lines(log), ptxas[0])
+                ln for ln in short_ptxas(
+                    ptxas_lines(log), ptxas[0])
                 if ln.startswith(ptxas[1])), flush=True)
         libs[name] = ctypes.CDLL(str(out / f"{kernel}_{name}.so"))
     return libs
@@ -143,14 +463,13 @@ def entries(libs, symbol, argtypes):
 
 
 def main_cv(names, repeat) -> int:
-    """B3's variants at phases 5 and 11's inputs (DHD-M and DHD-L)."""
-    import chip_smoke
+    """B3's variants at :func:`cv_inputs` of DHD-M and DHD-L."""
     from dhd_tpu_torch.ops import cv_cost_plain
     from dhd_tpu_torch.ops.cost_volume_cuda import _ARGTYPES
 
     fns = entries(build("cv", names), "stereo_cost_bf16", _ARGTYPES)
     dev = torch.device("cuda")
-    cases = {preset: chip_smoke.cv_inputs(dev, preset)
+    cases = {preset: cv_inputs(dev, preset)
              for preset in ("dhd_m", "dhd_l")}
     for _ in range(repeat):
         for preset, (prev, curr, uf, vf, bias) in cases.items():
@@ -164,26 +483,22 @@ def main_cv(names, repeat) -> int:
                               vf.data_ptr(), cost.data_ptr(), bn, d, hs, ws,
                               prev.shape[-1], bias,
                               torch.cuda.current_stream().cuda_stream)
-                chip_smoke.check(run() == 0, f"{name}: launch failed")
+                check(run() == 0, f"{name}: launch failed")
                 torch.cuda.synchronize()
                 got = torch.softmax(-cost, 1)
-                chip_smoke.check(name in TIMING_ONLY or bool((
-                    (got - want).abs() <= chip_smoke.CV_ATOL
-                    + chip_smoke.CV_RTOL * want).all()),
+                check(name in TIMING_ONLY or bool((
+                    (got - want).abs() <= CV_ATOL
+                    + CV_RTOL * want).all()),
                     f"{name} at {preset}: probabilities differ")
-                row.append(f"{name} {chip_smoke.time_ms(run):.4f}")
+                row.append(f"{name} {time_ms(run):.4f}")
             print(f"{preset} ({bn}, {d}, {hs}, {ws}) x C={prev.shape[-1]}: "
                   + ", ".join(row), flush=True)
     return 0
 
 
 def main_segsum(names, repeat) -> int:
-    """B2's variants at phase 14's cases, the ids sorted, each held to
-    phase 14's bar against the plain version (but the timing-only
-    ones)."""
-    import numpy as np
-
-    import chip_smoke
+    """B2's variants at :func:`segsum_cases`, the ids sorted, each held
+    against the plain version (but the timing-only ones)."""
     from dhd_tpu_torch.ops.segment_sum import (_ARGTYPES, _NAME,
                                                channels_per_lane,
                                                sorted_segment_sum_plain)
@@ -192,8 +507,8 @@ def main_segsum(names, repeat) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(14)
     cases = []
-    for label, p, c, v, dt, out_dt, layout in chip_smoke.segsum_cases():
-        seg = torch.from_numpy(chip_smoke.segsum_ids(rng, p, v, layout)
+    for label, p, c, v, dt, out_dt, layout in segsum_cases():
+        seg = torch.from_numpy(segsum_ids(rng, p, v, layout)
                                ).to(dev)
         seg_s, order = torch.sort(seg, stable=True)
         vals = torch.from_numpy(rng.normal(0, 1, (p, c)).astype(
@@ -223,26 +538,26 @@ def main_segsum(names, repeat) -> int:
                               out.data_ptr(), scratch.data_ptr(), p, c, v,
                               vec, torch.cuda.current_stream().cuda_stream)
                 out.fill_(float("nan"))
-                chip_smoke.check(run() == 0, f"{name}: launch failed")
+                check(run() == 0, f"{name}: launch failed")
                 torch.cuda.synchronize()
-                chip_smoke.check(
+                check(
                     name in TIMING_ONLY or bool(
                         ((out.float() - want).abs() <= ulp
                          + 2.0 ** -20 * terms).all()),
                     f"{name} at {label}: sums differ")
-                row.append(f"{name} {chip_smoke.time_ms(run):.4f}")
+                row.append(f"{name} {time_ms(run):.4f}")
             print(f"{label} (P={p}, C={c}, V={v}): " + ", ".join(row),
                   flush=True)
     return 0
 
 
 def main_pool(names, repeat, pieces, lanes) -> int:
-    """B1's variants at phases 2, 6 and 11's inputs and the hot pillar;
+    """B1's variants at :func:`pool_case` of DHD-S, DHD-M, DHD-L and the
+    hot pillar;
     then ``base`` with the plan's schedule rebuilt for each piece size in
     ``pieces`` and at each (channels a lane, lanes a point) in ``lanes``."""
     import dataclasses
 
-    import chip_smoke
     from dhd_tpu_torch.ops.mghs_pool_cuda import (_ARGTYPES, _FN,
                                                   lanes_per_point,
                                                   mghs_pool_plan_plain,
@@ -250,7 +565,7 @@ def main_pool(names, repeat, pieces, lanes) -> int:
 
     libs = build("pool", names)
     dev = torch.device("cuda")
-    cases = {preset: chip_smoke.pool_case(dev, preset)
+    cases = {preset: pool_case(dev, preset)
              for preset in ("dhd_s", "dhd_m", "dhd_l", "hot")}
     for _ in range(repeat):
         for preset, (cfg, plan, depth, feat, band_mask) in cases.items():
@@ -285,24 +600,24 @@ def main_pool(names, repeat, pieces, lanes) -> int:
                               sp.splits.shape[0], b * dy * dx, c,
                               depth.shape[-1], dz, *sp.band_edges,
                               *vl, torch.cuda.current_stream().cuda_stream)
-                chip_smoke.check(run() == 0, f"{name}: launch failed")
+                check(run() == 0, f"{name}: launch failed")
                 torch.cuda.synchronize()
                 if name not in TIMING_ONLY:
-                    ulps = max(chip_smoke.bf16_ulp_diff(bev, want[0]),
-                               chip_smoke.bf16_ulp_diff(vox, want[1]))
-                    frac = max(chip_smoke.sum_error_share(bev, want[0],
+                    ulps = max(bf16_ulp_diff(bev, want[0]),
+                               bf16_ulp_diff(vox, want[1]))
+                    frac = max(sum_error_share(bev, want[0],
                                                           terms[0]),
-                               chip_smoke.sum_error_share(vox, want[1],
+                               sum_error_share(vox, want[1],
                                                           terms[1]))
-                    chip_smoke.check(
-                        ulps <= chip_smoke.POOL_ULP_TOL
+                    check(
+                        ulps <= POOL_ULP_TOL
                         or (preset == "dhd_l" and frac <= 1),
                         f"{name} at {preset}: {ulps} ulps, {frac:.3f}")
-                row.append(f"{name} {chip_smoke.time_ms(run):.4f}")
-            row.append("zero_ {:.4f}".format(chip_smoke.time_ms(
+                row.append(f"{name} {time_ms(run):.4f}")
+            row.append("zero_ {:.4f}".format(time_ms(
                 lambda: (vox.zero_(), bev.zero_()))))
             print(f"{preset} (P={plan.dix_s.numel()}, busiest pillar "
-                  f"{chip_smoke.pillar_histogram(plan)['max']}, "
+                  f"{pillar_histogram(plan)['max']}, "
                   f"{int((plan.tasks[:, 0] < b * dy * dx).sum())} tasks): "
                   + ", ".join(row), flush=True)
             del want, terms
@@ -323,9 +638,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
-    print(chip_smoke.smi_name_power(), flush=True)
+    print(smi_name_power(), flush=True)
     names = (args.variants or ",".join(VARIANTS[args.kernel])).split(",")
     if args.kernel == "cv":
         return main_cv(names, args.repeat)
@@ -347,7 +660,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(9)
     for _ in range(args.repeat):
         for i, (_, _, hp, wp, c, heads, _) in enumerate(
-                chip_smoke.swin_stage_shapes(cfg)):
+                swin_stage_shapes(cfg)):
             w = cfg.num_cams * (hp // 12) * (wp // 12)
             qkv = torch.randn((w, n, 3 * c), generator=g, device=dev).to(bf16)
             bias = torch.randn((heads, n, n), generator=g,
@@ -366,13 +679,13 @@ def main() -> int:
                                   0 if mask is None else mask.shape[0],
                                   attention_scale(c // heads, bf16),
                                   torch.cuda.current_stream().cuda_stream)
-                    chip_smoke.check(run() == 0, f"{name}: launch failed")
+                    check(run() == 0, f"{name}: launch failed")
                     torch.cuda.synchronize()
                     ulps = (float((out.float() - want.float()).abs().max())
-                            / chip_smoke.bf16_ulp_at(want))
-                    chip_smoke.check(name in TIMING_ONLY or ulps <= 4,
+                            / bf16_ulp_at(want))
+                    check(name in TIMING_ONLY or ulps <= 4,
                                      f"{name}: {ulps:.2f} ulps")
-                    row.append(f"{name} {chip_smoke.time_ms(run):.4f}")
+                    row.append(f"{name} {time_ms(run):.4f}")
                 print(f"stage{i} {'shifted' if shifted else 'unshifted'} "
                       f"(W={w}, heads={heads}): " + ", ".join(row),
                       flush=True)

@@ -1,6 +1,6 @@
 """How two train steps' gradients are compared: the port's GPU step
-against its CPU step (``chip_smoke.py``) and the port's step against the
-JAX package's (the tests).
+against its CPU step (tests/test_torch_card_train.py) and the port's step
+against the JAX package's (the CPU tests).
 
 Two fp32 forwards differ by ~1e-6 of their activations' scale, enough to
 flip a few ReLU gates, and one flipped gate moves a weight gradient by

@@ -1,12 +1,17 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions.  Every test here needs a CUDA device and skips without one.
-No JAX here: on the GPU machine run
-``python -m pytest --noconftest tests/test_torch_cuda.py -q``."""
+versions: at small shapes chosen for their edges, and at the shapes the
+served models give them (the inputs ``chip_variants.py`` makes: each
+preset's served pool plan, DHD-M's and DHD-L's stereo maps, DHD-L's Swin-B
+stages and LayerNorms, the ``--what pool`` segment sums).  Every test here
+needs a CUDA device and skips without one.  No JAX here: on the GPU
+machine run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
+"""
 import numpy as np
 import pytest
 import torch
 
-from dhd_tpu_torch.config import GridConfig, ViewTransformConfig
+import chip_variants
+from dhd_tpu_torch.config import GridConfig, ViewTransformConfig, get_config
 from dhd_tpu_torch.geometry import create_frustum
 from dhd_tpu_torch.nn.swin import _shift_attn_mask
 from dhd_tpu_torch.ops import (build_cv_plan, build_pool_plan,
@@ -18,8 +23,14 @@ from dhd_tpu_torch.ops import (build_cv_plan, build_pool_plan,
                                stereo_cost_volume_cuda, window_attention_cuda,
                                window_attention_plain)
 from dhd_tpu_torch.profiling import kernel_launches
+from torch_cases import (check_cost_volume, check_plan, check_pool,
+                         check_pool_repeats, ln_share)
 
 pytestmark = pytest.mark.cuda
+# B1's served plans: DHD-S's rig, DHD-M's and DHD-L's streamed frame, and
+# DHD-S's with a tenth of its points in one pillar
+SERVED_POOLS = ("dhd_s", "dhd_m", "dhd_l", "hot")
+DHD_L = get_config("dhd_l")
 
 
 @pytest.fixture
@@ -27,6 +38,19 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def served_pool():
+    """``chip_variants.pool_case`` of a preset, built once a module."""
+    cases = {}
+
+    def case(dev, preset):
+        if preset not in cases:
+            cases[preset] = chip_variants.pool_case(dev, preset)
+        return cases[preset]
+    yield case
+    cases.clear()
 
 
 def _pool_inputs(dev, dtype, seed=6):
@@ -50,10 +74,18 @@ def _pool_inputs(dev, dtype, seed=6):
     return [torch.tensor(a, dtype=dtype, device=dev) for a in args], plan
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mghs_pool_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("dtype,served", [
+    (torch.float32, None), (torch.bfloat16, None),
+    *((torch.bfloat16, p) for p in SERVED_POOLS)],
+    ids=["fp32", "bf16", *SERVED_POOLS])
+def test_mghs_pool_kernel_matches_plain(cuda, served_pool, dtype, served):
     """fp32 within 1e-5; bf16 within one bf16 ulp (2^-7 relative): only
-    the fp32 summation order differs."""
+    the fp32 summation order differs.  At a served plan, bf16, the bar of
+    ``torch_cases.check_pool`` (loose at DHD-L)."""
+    if served:
+        _, plan, *args = served_pool(cuda, served)
+        check_pool(*args, plan, loose=served == "dhd_l")
+        return
     args, plan = _pool_inputs(cuda, dtype)
     before = kernel_launches()["mghs_pool_cuda"]
     got = mghs_pool_cuda(*args, plan)
@@ -247,14 +279,22 @@ def test_mghs_pool_kernel_rejects_no_channels(cuda):
     assert kernel_launches()["mghs_pool_cuda"] == before
 
 
-@pytest.mark.parametrize("piece", [1, 8, 128, 256])
-@pytest.mark.parametrize("layout", ["uniform", "hot", "one_row", "none"])
-def test_pool_plan_kernel_matches_plain(cuda, layout, piece):
+@pytest.mark.parametrize("layout,piece", [
+    *((layout, piece) for piece in (1, 8, 128, 256)
+      for layout in ("uniform", "hot", "one_row", "none")),
+    *((f"served_{p}", None) for p in SERVED_POOLS)])
+def test_pool_plan_kernel_matches_plain(cuda, served_pool, layout, piece):
     """The plan kernels give the plain version's tables and lists exactly
     (the same order, slots and padding) and count one launch; the plan's
-    fitted slot count is the slots its split pillars use."""
+    fitted slot count is the slots its split pillars use.  At a served
+    plan's keys they give that plan's tables."""
     from dhd_tpu_torch.ops.mghs_pool_cuda import (pool_plan_cuda,
                                                   pool_plan_plain)
+    if layout.startswith("served_"):
+        preset = layout[len("served_"):]
+        check_plan(chip_variants.pool_indices(cuda, preset),
+                   served_pool(cuda, preset)[1])
+        return
     vt, idx, shape = _pool_case(cuda, torch.float32, layout, indices=True)
     key_s, order = torch.sort(idx.key, stable=True)
     args = (key_s, order, idx.seg_vox, idx.num_seg_vox, shape,
@@ -303,11 +343,16 @@ def test_mghs_pool_kernel_needs_a_schedule(cuda):
     assert kernel_launches()["mghs_pool_cuda"] == before
 
 
-@pytest.mark.parametrize("layout", ["hot", "uniform_piece8"])
-def test_mghs_pool_kernel_bit_identical(cuda, layout):
+@pytest.mark.parametrize("layout", ["hot", "uniform_piece8",
+                                    *(f"served_{p}" for p in SERVED_POOLS)])
+def test_mghs_pool_kernel_bit_identical(cuda, served_pool, layout):
     """Two calls give the same bits: split pillars are added in slot
     order, with no atomics; so does a plan whose scratch is fitted to the
     slots it uses."""
+    if layout.startswith("served_"):
+        _, plan, *args = served_pool(cuda, layout[len("served_"):])
+        check_pool_repeats(*args, plan)
+        return
     args, plan = _pool_case(cuda, torch.bfloat16, layout, c=64)
     _, fitted = _pool_case(cuda, torch.bfloat16, layout, c=64,
                            fit_scratch=True)
@@ -348,11 +393,18 @@ def _cv_inputs(dev, dtype, c, seed=3, bn=2, hs=16, ws=40):
 
 @pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 256),
                                      (torch.bfloat16, 256),
-                                     (torch.bfloat16, 512)])
+                                     (torch.bfloat16, 512),
+                                     (torch.bfloat16, "dhd_m"),
+                                     (torch.bfloat16, "dhd_l")])
 def test_cost_volume_kernel_matches_plain(cuda, dtype, c):
     """B3 against its plain version on the same inputs: both upcast to fp32
     and differ only in the order of the channel sum; the bias lands on the
-    same samples (exact zeros in channel 0 included)."""
+    same samples (exact zeros in channel 0 included).  At DHD-M's and
+    DHD-L's stride-4 maps (``chip_variants.cv_inputs``), the bar of
+    ``torch_cases.check_cost_volume``."""
+    if isinstance(c, str):
+        check_cost_volume(*chip_variants.cv_inputs(cuda, c))
+        return
     prev, curr, uf, vf = _cv_inputs(cuda, dtype, c)
     before = kernel_launches()["stereo_cost_volume_cuda"]
     got = stereo_cost_volume_cuda(prev, curr, uf, vf, 5.0)
@@ -395,12 +447,13 @@ def _bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def _check_layer_norm(cuda, dtype, rows, c, seed):
+def _check_layer_norm(cuda, dtype, rows, c, seed, served=False):
     """B5 against its plain version on (rows, c): fp32 within 1e-5; bf16
     within one bf16 ulp of each element plus 2^-20 (8 fp32 ulps) of the
     terms it is computed from.  Only the order of the fp32 row sums
     differs, but where (x - mu) * mul cancels against the bias the result
-    is tiny, and an fp32-level difference is many of its bf16 ulps."""
+    is tiny, and an fp32-level difference is many of its bf16 ulps.
+    ``served``: a served model's shape, held to ``torch_cases.ln_share``."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = (3 * torch.randn(rows + (c,), generator=g, device=cuda) + 0.5
          ).to(dtype)
@@ -412,7 +465,9 @@ def _check_layer_norm(cuda, dtype, rows, c, seed):
     want = layer_norm_plain(x, w, b)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == x.shape
-    if dtype == torch.float32:
+    if served:
+        assert ln_share(got, want, x, w, b) <= 1
+    elif dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         xf = x.float()
@@ -427,11 +482,30 @@ def _check_layer_norm(cuda, dtype, rows, c, seed):
         assert float((_bf16_ulps(got, want) <= 1).float().mean()) > 0.999
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [8, 136, 512, 2048])
-def test_layer_norm_kernel_matches_plain(cuda, dtype, c):
-    """B5 against its plain version on (3, 77, c); see _check_layer_norm."""
-    _check_layer_norm(cuda, dtype, (3, 77), c, seed=c)
+def _dhd_l_layer_norms():
+    """Each distinct (rows, C) of DHD-L's 54 LayerNorms at B=1: the patch
+    embedding's, two a block and the output norms at each stage's tokens,
+    and each patch merge's at 4C."""
+    stages = chip_variants.swin_stage_shapes(DHD_L)
+    shapes = set()
+    for i, (h, w, _, _, c, _, _) in enumerate(stages):
+        shapes.add((DHD_L.num_cams * h * w, c))
+        if i + 1 < len(stages):
+            nh, nw = stages[i + 1][:2]
+            shapes.add((DHD_L.num_cams * nh * nw, 4 * c))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("dtype,rows,c,served", [
+    *((dtype, (3, 77), c, False) for c in (8, 136, 512, 2048)
+      for dtype in (torch.float32, torch.bfloat16)),
+    *((torch.bfloat16, (rows,), c, True)
+      for rows, c in _dhd_l_layer_norms())])
+def test_layer_norm_kernel_matches_plain(cuda, dtype, rows, c, served):
+    """B5 against its plain version on (3, 77, c), and in bf16 at each
+    shape DHD-L's Swin-B gives it; see _check_layer_norm."""
+    _check_layer_norm(cuda, dtype, rows, c, seed=sum(rows) + c,
+                      served=served)
 
 
 @pytest.mark.parametrize("rows,c", [
@@ -465,14 +539,16 @@ def test_layer_norm_kernel_rejects_bad_inputs(cuda):
     assert kernel_launches()["fused_layer_norm_cuda"] == before
 
 
-def _attn_inputs(dev, dtype, ws, heads, hd, shifted, n_img_w=2, seed=7):
-    """Unit-normal qkv and bias (tools/check_attn_parity.py) for images of
-    2 x n_img_w windows, with the real shift mask or none."""
+def _attn_inputs(dev, dtype, ws, heads, hd, shifted, grid=(2, 2), images=3,
+                 seed=7):
+    """Unit-normal qkv and bias (tools/check_attn_parity.py) for
+    ``images`` images of ``grid`` windows, with the real shift mask or
+    none."""
     n, c = ws * ws, heads * hd
-    hp, wp = 2 * ws, n_img_w * ws
-    n_img = 2 * n_img_w
+    hp, wp = grid[0] * ws, grid[1] * ws
+    n_img = grid[0] * grid[1]
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn((3 * n_img, n, 3 * c), generator=g, device=dev)
+    qkv = torch.randn((images * n_img, n, 3 * c), generator=g, device=dev)
     bias = torch.randn((heads, n, n), generator=g, device=dev)
     mask = (torch.from_numpy(_shift_attn_mask(hp, wp, ws, ws // 2)).to(dev)
             if shifted else None)
@@ -480,18 +556,45 @@ def _attn_inputs(dev, dtype, ws, heads, hd, shifted, n_img_w=2, seed=7):
             None if mask is None else mask.to(dtype))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ws,heads,hd,shifted", [
-    (4, 2, 16, True), (7, 3, 32, False), (12, 4, 32, True),
-    (12, 2, 16, False), (16, 2, 32, True)])
+def _dhd_l_attention():
+    """DHD-L's window attentions at B=1: each Swin-B stage's padded grid of
+    12x12 windows over 6 images, unshifted and shifted; and stage 0's grid
+    at 3 heads of 32, a layout JAX sends to its v1 kernel."""
+    cases = {}
+    for i, (_, _, hp, wp, c, heads, _) in enumerate(
+            chip_variants.swin_stage_shapes(DHD_L)):
+        ws = DHD_L.swin_window
+        grid = (hp // ws, wp // ws)
+        if i == 0:
+            cases["dhd_l_v1_heads3"] = (ws, 3, 32, True, grid, DHD_L.num_cams)
+        for shifted in (False, True):
+            cases[f"dhd_l_stage{i}_{'shifted' if shifted else 'unshifted'}"] \
+                = (ws, heads, c // heads, shifted, grid, DHD_L.num_cams)
+    return cases
+
+
+ATTN_SMALL = [(4, 2, 16, True), (7, 3, 32, False), (12, 4, 32, True),
+              (12, 2, 16, False), (16, 2, 32, True)]
+ATTN_DHD_L = _dhd_l_attention()
+
+
+@pytest.mark.parametrize("dtype,ws,heads,hd,shifted,grid,images", [
+    *((dtype, *shape, (2, 2), 3) for shape in ATTN_SMALL
+      for dtype in (torch.float32, torch.bfloat16)),
+    *((torch.bfloat16, *shape) for shape in ATTN_DHD_L.values())],
+    ids=[*(f"{'fp32' if k % 2 == 0 else 'bf16'}-ws{s[0]}-h{s[1]}-hd{s[2]}"
+           f"{'-shifted' if s[3] else ''}" for s in ATTN_SMALL
+           for k in range(2)), *ATTN_DHD_L])
 def test_window_attention_kernel_matches_plain(cuda, dtype, ws, heads, hd,
-                                               shifted):
+                                               shifted, grid, images):
     """B4 against its plain version (the XLA composition): fp32 within
     1e-5; bf16 within 4 bf16 ulps of the output's peak, the bar the TPU
     kernel held against XLA (tools/check_attn_parity.py).  Window 16
-    (N = 256) takes more than 48 KB of shared memory."""
+    (N = 256) takes more than 48 KB of shared memory.  In bf16 also at
+    DHD-L's stage shapes."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    qkv, bias, mask = _attn_inputs(cuda, dtype, ws, heads, hd, shifted)
+    qkv, bias, mask = _attn_inputs(cuda, dtype, ws, heads, hd, shifted,
+                                   grid, images)
     before = kernel_launches()["window_attention_cuda"]
     got = window_attention_cuda(qkv, bias, mask, heads)
     assert kernel_launches()["window_attention_cuda"] == before + 1
@@ -585,22 +688,26 @@ def _segsum_inputs(dev, dtype, c, layout="uniform", p=20000, v=9000, seed=8):
     return vals, torch.tensor(seg, dtype=torch.int32, device=dev), v
 
 
-@pytest.mark.parametrize("dtype,out_dtype,c,layout", [
-    (torch.bfloat16, torch.bfloat16, 64, "uniform"),
-    (torch.bfloat16, torch.float32, 64, "hot"),
-    (torch.float32, torch.float32, 64, "negative"),
-    (torch.float32, torch.bfloat16, 8, "uniform"),
-    (torch.bfloat16, torch.bfloat16, 96, "hot"),
-    (torch.bfloat16, torch.bfloat16, 160, "negative"),
-    (torch.float32, torch.float32, 256, "uniform"),
-    (torch.bfloat16, torch.bfloat16, 7, "hot")])
-def test_segment_sum_kernel_matches_plain(cuda, dtype, out_dtype, c, layout):
+@pytest.mark.parametrize("dtype,out_dtype,c,layout,p,v", [
+    (torch.bfloat16, torch.bfloat16, 64, "uniform", 20000, 9000),
+    (torch.bfloat16, torch.float32, 64, "hot", 20000, 9000),
+    (torch.float32, torch.float32, 64, "negative", 20000, 9000),
+    (torch.float32, torch.bfloat16, 8, "uniform", 20000, 9000),
+    (torch.bfloat16, torch.bfloat16, 96, "hot", 20000, 9000),
+    (torch.bfloat16, torch.bfloat16, 160, "negative", 20000, 9000),
+    (torch.float32, torch.float32, 256, "uniform", 20000, 9000),
+    (torch.bfloat16, torch.bfloat16, 7, "hot", 20000, 9000),
+    # the ``--what pool`` shapes of DHD-S and DHD-L (P points into V)
+    *((dt, out, c, layout, p, v) for label, p, c, v, dt, out, layout
+      in chip_variants.segsum_cases() if label.startswith("dhd_"))])
+def test_segment_sum_kernel_matches_plain(cuda, dtype, out_dtype, c, layout,
+                                          p, v):
     """B2 against its plain version on the same sorted rows: fp32 out
     within 2^-20 of the summed |terms|, bf16 out within one bf16 ulp of
     the result plus that; empty segments exactly 0; the unsorted entry
     (the kernel gathering the rows itself) gives the same sums bit for
     bit."""
-    vals, seg, v = _segsum_inputs(cuda, dtype, c, layout)
+    vals, seg, v = _segsum_inputs(cuda, dtype, c, layout, p, v)
     seg_s, order = torch.sort(seg, stable=True)
     vals_s = vals[order].contiguous()
     before = kernel_launches()["sorted_segment_sum"]
@@ -659,13 +766,11 @@ def test_segment_sum_kernel_rejects_bad_inputs(cuda):
 
 
 def test_time_ms_counts_device_time_only(cuda):
-    """chip_smoke.time_ms reads the device's time of a call, not the
+    """chip_variants.time_ms reads the device's time of a call, not the
     host's: a call that spends 0.3 ms on the host before one tiny launch
     reads far below 0.3 ms (events around it on an idle card would wait
     for the host, as they did before the sleep kernel ahead of them)."""
     import time
-
-    import chip_smoke
 
     x = torch.ones(1024, device=cuda)
 
@@ -675,16 +780,14 @@ def test_time_ms_counts_device_time_only(cuda):
             pass
         x.add_(1.0)
 
-    assert chip_smoke.time_ms(call, iters=10, warmup=2) < 0.1
+    assert chip_variants.time_ms(call, iters=10, warmup=2) < 0.1
 
 
 def test_time_ms_idle_counts_host_time(cuda):
-    """With ``busy=False`` chip_smoke.time_ms reads the call on an idle
+    """With ``busy=False`` chip_variants.time_ms reads the call on an idle
     device, the host's work before the launch included, and host_us the
     host's time of the call alone."""
     import time
-
-    import chip_smoke
 
     x = torch.ones(1024, device=cuda)
 
@@ -694,8 +797,9 @@ def test_time_ms_idle_counts_host_time(cuda):
             pass
         x.add_(1.0)
 
-    assert chip_smoke.time_ms(call, iters=10, warmup=2, busy=False) > 0.25
-    assert chip_smoke.host_us(call, iters=10, warmup=2) > 250
+    assert chip_variants.time_ms(call, iters=10, warmup=2, busy=False) \
+        > 0.25
+    assert chip_variants.host_us(call, iters=10, warmup=2) > 250
 
 
 SEGSUM_EDGES = {

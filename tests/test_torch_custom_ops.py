@@ -3,7 +3,8 @@ the CPU: under a trace (``torch.compiler.is_compiling``) each wrapper's
 card path checks its fake CUDA inputs without reading their memory and
 records its op, whose registered fake gives the kernel's output shapes
 and dtypes from the input shapes alone; no launch is counted.  The card
-runs the ops' implementations (``chip_smoke.py`` phase 23)."""
+runs the ops' implementations in exported programs
+(tests/test_torch_card_serve.py)."""
 from unittest import mock
 
 import pytest

@@ -20,25 +20,11 @@ from dhd_tpu_torch.io import convert as C
 from dhd_tpu_torch.io import load_jax_variables
 from dhd_tpu_torch.models import DHDStereoNet, build_model
 from dhd_tpu_torch.nn import SwinTransformer
+from torch_cases import tiny_dhd_l
 
 OUT_KEYS = ("occ_logits", "depth", "height")
 STREAM_KEYS = ("imgs", "sensor2ego", "ego2global", "intrins", "post_rots",
                "post_trans")
-
-
-def tiny_dhd_l(get_config):
-    """``dhd_tiny_stereo`` at 64x192 with a Swin-B-shaped backbone (embed
-    16, depths (1, 1, 2, 1), heads (1, 2, 4, 8), window 4) and the FPN_LSS
-    image neck (tests/test_stereo_model.py:145-158); the same replace for
-    either package's config.  ``sfa_in_channels`` is the SFA's real input,
-    BEV neck 64 + voxel encoders 64 (flax infers it; the port builds it)."""
-    base = get_config("dhd_tiny_stereo")
-    return dataclasses.replace(
-        base, vt=dataclasses.replace(base.vt, input_size=(64, 192)),
-        backbone="swin_base", swin_embed_dims=16, swin_depths=(1, 1, 2, 1),
-        swin_num_heads=(1, 2, 4, 8), swin_window=4, img_neck="fpn_lss",
-        img_neck_in_channels=(64, 128),
-        img_neck_out_channels=base.vt.in_channels, sfa_in_channels=128)
 
 
 def _rel_to_peak(a, b):

@@ -18,12 +18,13 @@ from bench_port.loops import port_config
 from bench_port.reference import models as ref_models
 from bench_port.reference.config import config_from_dict
 from bench_port.weights import make_weights
-from chip_smoke import tiny_dhd_l, tiny_dhd_m
+from chip_smoke import tiny_dhd_m
 from dhd_tpu_torch import profiling
 from dhd_tpu_torch.config import ModelConfig, get_config
 from dhd_tpu_torch.models import (build_batch_pool_plan, build_model,
                                   build_stream_cv_static,
                                   build_stream_pool_plan)
+from torch_cases import tiny_dhd_l
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -101,7 +102,7 @@ def _served_frame(cfg):
 
 
 @pytest.mark.parametrize("make", [lambda: get_config("dhd_tiny"), tiny_dhd_m,
-                                  tiny_dhd_l],
+                                  lambda: tiny_dhd_l(get_config)],
                          ids=["dhd_s_shaped", "dhd_m_shaped", "dhd_l_shaped"])
 def test_head_splits_into_three_spans(make):
     """Under a profiler the served frame's ``head`` holds ``bev_encoder``,

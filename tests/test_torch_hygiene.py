@@ -1,13 +1,18 @@
-"""The PyTorch port imports nothing of JAX, flax or the JAX package."""
+"""The PyTorch port imports nothing of JAX, flax or the JAX package: nor
+do the scripts beside it, nor the test modules the card runs without JAX
+(``--noconftest``) and the helpers they import."""
 import ast
 import pathlib
 
 import pytest
 
+from chip_smoke import CARD_MODULES
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "dhd_tpu")
 SOURCES = sorted((ROOT / "dhd_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_variants.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_variants.py"] + [
+    ROOT / name for name in CARD_MODULES] + [ROOT / "tests" / "torch_cases.py"]
 
 
 def _imports(path):
@@ -36,3 +41,13 @@ def test_port_sources_found():
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_smoke_runs_every_card_module():
+    """``chip_smoke.py`` runs every test module of the port that holds a
+    ``cuda``-marked test, and no other."""
+    marked = {p.relative_to(ROOT).as_posix()
+              for p in (ROOT / "tests").glob("test_torch_*.py")
+              if p.name != pathlib.Path(__file__).name
+              and "pytest.mark.cuda" in p.read_text()}
+    assert marked == set(CARD_MODULES)

@@ -97,9 +97,9 @@ FP64_EMA_ATOL = 1e-6
 
 def _config(get_config, preset):
     """``preset`` of either package's ``get_config``; ``"tiny_dhd_l"`` is
-    tests/test_torch_dhd_l.py's tiny DHD-L-shaped configuration."""
+    tests/torch_cases.py's tiny DHD-L-shaped configuration."""
     if preset == "tiny_dhd_l":
-        from test_torch_dhd_l import tiny_dhd_l
+        from torch_cases import tiny_dhd_l
         return tiny_dhd_l(get_config)
     return get_config(preset)
 
