@@ -6,6 +6,7 @@ source under ``dhd_tpu_torch/csrc/`` with a line edited, built by nvcc into
     python3 chip_variants.py [--variants base,nomask,bias2] [--repeat 2]
     python3 chip_variants.py --kernel cv [--variants base,sametap]
     python3 chip_variants.py --kernel segsum [--variants base,nofix,nostore]
+    python3 chip_variants.py --kernel ln
     python3 chip_variants.py --kernel pool [--variants base,nopoints,nostore]
         [--pieces 64,256] [--lanes 2x32]
 
@@ -36,6 +37,17 @@ traffic (timing only).
 ``sorted_segment_sum_plain`` (one bf16 ulp plus 2^-20 of the summed
 |terms|); ``nofix`` skips the second pass and ``nostore`` stores no
 output rows (both timing only): what each costs.
+
+``--kernel ln``: the LayerNorm (B5), ``layer_norm.cu``, at DHD-L's four
+Swin-B stages (six images, bf16): its plain launch over a stage's tokens
+and a block's two fused launches (norm1 in window order, the pad and the
+shift inside; the window reverse, the attention residual and norm2),
+unshifted and shifted, each beside its byte bound (the plain launch x
+and y, the window launch x and the window tensor, the residual launch x,
+the attention output's rows, the sum and the norm, once each) and the
+chain's time (B5 with ``F.pad`` and the gather; the gather, the add and
+B5); ``base`` held bit for bit against the chain; ptxas's report of
+every instantiation.
 
 ``--kernel pool``: the fused MGHS pooling (B1), ``mghs_pool.cu``, at the
 served plans of DHD-S, DHD-M and DHD-L and the hot pillar
@@ -88,6 +100,9 @@ VARIANTS = {  # kernel -> variant -> exact source edits
                    "cfg.numAttrs = 1;\n  if (C > 0) return 0;")],
         "nostore": [(SEG_STORE, "if (acc[0] == 1234.5f) " + SEG_STORE)],
     },
+    "ln": {
+        "base": [],
+    },
     "pool": {
         "base": [],
         "nopoints": [(POOL_WALK, POOL_WALK.replace("< p1", "< p0"))],
@@ -104,6 +119,7 @@ SOURCES = {
     "cv": ("cost_volume.cu", ("cost_volume_kernel", "<13__nv_bfloat16")),
     "segsum": ("segment_sum.cu", None),
     "pool": ("mghs_pool.cu", ("mghs_pool_kernel", "<")),
+    "ln": ("layer_norm.cu", ("layer_norm_kernel", "<")),
 }
 
 
@@ -222,6 +238,50 @@ def sum_error_share(y_k, y_p, terms, atol=None) -> float:
     tol = ulp + TERM_TOL * terms.float()
     diff = (y_k.float() - yp).abs()
     return float(torch.where(diff > 0, diff / tol, 0.0).max())
+
+
+def window_norm_chain(x, weight, bias, eps, hw, ws, shift):
+    """What ``swin_window_norm_cuda`` stands for, as the Swin block's chain
+    runs it (``nn/swin.py:ShiftWindowMSA.forward``): B5 over x's rows,
+    ``F.pad`` to multiples of ``ws``, then the shift and the window
+    partition as one row gather; (B * nW * ws * ws, C)."""
+    from dhd_tpu_torch.nn.swin import _device_perms
+    from dhd_tpu_torch.ops import fused_layer_norm_cuda
+
+    h, w = hw
+    b, _, c = x.shape
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    y = fused_layer_norm_cuda(x, weight, bias, eps).reshape(b, h, w, c)
+    y = torch.nn.functional.pad(y, (0, 0, 0, wp - w, 0, hp - h))
+    fwd, _ = _device_perms(hp, wp, h, w, ws, shift, x.device)
+    return y.reshape(b, hp * wp, c).index_select(1, fwd).reshape(-1, c)
+
+
+def residual_norm_chain(x, wins, weight, bias, eps, hw, ws, shift):
+    """What ``swin_residual_norm_cuda`` stands for, as the block's chain
+    runs it: the window reverse, the unshift and the crop as one row
+    gather, the residual add, and B5: (x + attn, norm2(x + attn))."""
+    from dhd_tpu_torch.nn.swin import _device_perms
+    from dhd_tpu_torch.ops import fused_layer_norm_cuda
+
+    h, w = hw
+    b, _, c = x.shape
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    _, inv = _device_perms(hp, wp, h, w, ws, shift, x.device)
+    s = x + wins.reshape(b, -1, c).index_select(1, inv)
+    return s, fused_layer_norm_cuda(s, weight, bias, eps)
+
+
+def bits_apart(a, b) -> int:
+    """Elements of a and b whose bits differ, NaN where NaN counting as
+    equal (a NaN's payload aside); raises where the shapes or dtypes
+    differ."""
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{a.dtype} {tuple(a.shape)} against {b.dtype} {tuple(b.shape)}")
+    nan = torch.isnan(a)
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((nan != torch.isnan(b)).sum()) + int(
+        (a.view(ints)[~nan] != b.view(ints)[~nan]).sum())
 
 
 def stream_frames(cfg, n_frames: int, seed: int = 0):
@@ -624,10 +684,86 @@ def main_pool(names, repeat, pieces, lanes) -> int:
     return 0
 
 
+def main_ln(names, repeat) -> int:
+    """B5 at DHD-L's Swin-B stages (B=1: six images, bf16): its plain
+    launch over a stage's tokens, and a block's two fused launches
+    (window order with the pad and shift; window reverse, residual and
+    norm2), each held bit for bit against the chain it stands for
+    (:func:`window_norm_chain`, :func:`residual_norm_chain`) and timed
+    beside its byte bound and the chain's time."""
+    from bench_port.bounds import HBM_BYTES_PER_S
+    from dhd_tpu_torch import get_config
+    from dhd_tpu_torch.ops.layer_norm import (_ARGTYPES, _RESIDUAL_ARGTYPES,
+                                              _WINDOW_ARGTYPES)
+
+    libs = build("ln", names)
+    plain = entries(libs, "layer_norm_bf16", _ARGTYPES)
+    window = entries(libs, "layer_norm_windows_bf16", _WINDOW_ARGTYPES)
+    residual = entries(libs, "layer_norm_residual_bf16", _RESIDUAL_ARGTYPES)
+    cfg = get_config("dhd_l")
+    dev, bf16, ws, imgs = (torch.device("cuda"), torch.bfloat16,
+                           cfg.swin_window, cfg.num_cams)
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def ms_bound(nbytes):
+        return f"(bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f})"
+    for _ in range(repeat):
+        for i, (h, w, hp, wp, c, _, _) in enumerate(swin_stage_shapes(cfg)):
+            x = torch.randn((imgs, h * w, c), generator=g,
+                            device=dev).to(bf16)
+            wins = torch.randn((imgs * hp * wp, c), generator=g,
+                               device=dev).to(bf16)
+            wt = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+            bs = 0.3 * torch.randn(c, generator=g, device=dev)
+            u, aff = x.numel() * 2, 8 * c
+            y, s2, y2 = (torch.empty_like(x) for _ in range(3))
+            yw = torch.empty_like(wins)
+            stream = torch.cuda.current_stream().cuda_stream
+            for shift in (0, ws // 2):
+                args = (1e-6, (h, w), ws, shift)
+                want_w = window_norm_chain(x, wt, bs, *args)
+                want_s, want_y = residual_norm_chain(x, wins, wt, bs, *args)
+                chain_w = time_ms(
+                    lambda: window_norm_chain(x, wt, bs, *args))
+                chain_r = time_ms(
+                    lambda: residual_norm_chain(x, wins, wt, bs, *args))
+                row = [f"chain window {chain_w:.4f}, residual {chain_r:.4f}"]
+                for name in names:
+                    runs = (
+                        lambda: plain[name](
+                            x.data_ptr(), wt.data_ptr(), bs.data_ptr(),
+                            y.data_ptr(), imgs * h * w, c, 1e-6, stream),
+                        lambda: window[name](
+                            x.data_ptr(), wt.data_ptr(), bs.data_ptr(),
+                            yw.data_ptr(), imgs, c, 1e-6, h, w, ws, shift,
+                            stream),
+                        lambda: residual[name](
+                            x.data_ptr(), wins.data_ptr(), wt.data_ptr(),
+                            bs.data_ptr(), s2.data_ptr(), y2.data_ptr(),
+                            imgs, c, 1e-6, h, w, ws, shift, stream))
+                    check(all(run() == 0 for run in runs),
+                          f"{name}: launch failed")
+                    torch.cuda.synchronize()
+                    apart = (bits_apart(yw, want_w) + bits_apart(s2, want_s)
+                             + bits_apart(y2, want_y))
+                    check(name in TIMING_ONLY or apart == 0,
+                          f"{name}: {apart} elements off the chain")
+                    row.append(
+                        f"{name} B5 {time_ms(runs[0]):.4f} "
+                        f"{ms_bound(2 * u + aff)}, window "
+                        f"{time_ms(runs[1]):.4f} "
+                        f"{ms_bound(u + yw.numel() * 2 + aff)}, residual "
+                        f"{time_ms(runs[2]):.4f} {ms_bound(4 * u + aff)}")
+                print(f"stage{i} {imgs}x{h}x{w}x{c} "
+                      f"{'shifted' if shift else 'unshifted'}: "
+                      + "; ".join(row), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("attn", "cv", "segsum", "pool"),
-                    default="attn")
+    ap.add_argument("--kernel", choices=("attn", "cv", "segsum", "pool",
+                                         "ln"), default="attn")
     ap.add_argument("--variants", default=None)
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--lanes", default="",
@@ -644,6 +780,8 @@ def main() -> int:
         return main_cv(names, args.repeat)
     if args.kernel == "segsum":
         return main_segsum(names, args.repeat)
+    if args.kernel == "ln":
+        return main_ln(names, args.repeat)
     if args.kernel == "pool":
         return main_pool(names, args.repeat,
                          [int(x) for x in args.pieces.split(",") if x],

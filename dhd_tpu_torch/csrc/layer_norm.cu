@@ -27,6 +27,20 @@
 //     lanes and, past 32 lanes, across the row's warps through shared
 //     memory (two slots by step parity: one barrier a step), in a fixed
 //     order.
+//
+// Two more instantiations of the same kernel carry a Swin block's data
+// movement (nn/swin.py:SwinBlock), each row's arithmetic unchanged:
+//   * kWindows, norm1 in window order: output row r of the (B * nW * ws^2,
+//     C) window tensor is the LayerNorm of the token at the padded,
+//     cyclically shifted position window partition puts there, or exact
+//     zeros where that position is padding (the pad comes after norm1);
+//   * kResidual, the window reverse, the attention residual and norm2:
+//     for token t, s = x[t] + proj[inv(t)] (the add in fp32, rounded to T,
+//     as PyTorch's add), written to the residual stream, and the
+//     LayerNorm of s.
+// The row maps are window_partition / window_reverse with the shift and
+// the crop (nn/swin.py:_window_perms), computed per row with divisions by
+// a multiply and a shift (Div).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -36,10 +50,76 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 0;      // y[r] = LN(x[r])
+constexpr int kWindows = 1;   // y[r] = LN(x[src(r)]) or 0 (padding)
+constexpr int kResidual = 2;  // s[t] = x[t] + p[inv(t)], y[t] = LN(s[t])
 
 template <typename T> struct Chunk;  // elements in one 16-byte load
 template <> struct Chunk<float> { static constexpr int V = 4; };
 template <> struct Chunk<__nv_bfloat16> { static constexpr int V = 8; };
+
+// n / d for 0 <= n < 2^31: (umulhi(n, m) + n) >> s, with s the least
+// shift where 2^s >= d and m = 2^32 (2^s - d) / d + 1 (fits in 32 bits).
+struct Div {
+  uint32_t m, s;
+  __device__ __forceinline__ int div(int n) const {
+    const uint32_t u = static_cast<uint32_t>(n);
+    return static_cast<int>((__umulhi(u, m) + u) >> s);
+  }
+};
+
+Div make_div(int d) {
+  uint32_t s = 0;
+  while ((1ull << s) < static_cast<uint64_t>(d)) ++s;
+  const uint64_t m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return Div{static_cast<uint32_t>(m), s};
+}
+
+// A Swin block's map of h x w tokens a image into windows of ws x ws over
+// the padded hp x wp map, cyclically shifted by `shift`: nw_w windows a
+// row of windows, n_win = ws * ws tokens a window.
+struct RowMap {
+  const void* p;  // kResidual: the window tensor added to x
+  void* sum;      // kResidual: where s is written
+  int h, w, hp, wp, ws, shift, nw_w, n_win;
+  Div img;        // kWindows: hp * wp rows a image; kResidual: h * w
+  Div win;        // kWindows: n_win
+  Div wrow;       // kWindows: nw_w; kResidual: w
+  Div wsd;        // ws
+};
+
+// kWindows: the token of x that window row r holds, or -1 for padding.
+__device__ __forceinline__ int window_source(int r, const RowMap& m) {
+  const int b = m.img.div(r);
+  const int q = r - b * m.hp * m.wp;
+  const int widx = m.win.div(q);
+  const int n = q - widx * m.n_win;
+  const int wi = m.wrow.div(widx);
+  const int wj = widx - wi * m.nw_w;
+  const int pi = m.wsd.div(n);
+  const int pj = n - pi * m.ws;
+  int si = wi * m.ws + pi + m.shift;
+  int sj = wj * m.ws + pj + m.shift;
+  if (si >= m.hp) si -= m.hp;
+  if (sj >= m.wp) sj -= m.wp;
+  return si < m.h && sj < m.w ? (b * m.h + si) * m.w + sj : -1;
+}
+
+// kResidual: the window row that token t came back from.
+__device__ __forceinline__ int window_target(int t, const RowMap& m) {
+  const int b = m.img.div(t);
+  const int k = t - b * m.h * m.w;
+  const int i = m.wrow.div(k);
+  const int j = k - i * m.w;
+  int ri = i - m.shift;
+  int rj = j - m.shift;
+  if (ri < 0) ri += m.hp;
+  if (rj < 0) rj += m.wp;
+  const int wi = m.wsd.div(ri);
+  const int wj = m.wsd.div(rj);
+  return b * m.hp * m.wp + (wi * m.nw_w + wj) * m.n_win
+         + (ri - wi * m.ws) * m.ws + (rj - wj * m.ws);
+}
 
 __device__ __forceinline__ void unpack(const uint4& a, float* out, float) {
   out[0] = __uint_as_float(a.x);
@@ -73,13 +153,24 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// LPR: lanes per row (16 to 256); NCH: the most chunks a lane holds.
-template <typename T, int LPR, int NCH>
+// a + b in fp32, rounded to T: PyTorch's add of two T tensors
+__device__ __forceinline__ float add_round(float a, float b, float) {
+  return __fadd_rn(a, b);
+}
+
+__device__ __forceinline__ float add_round(float a, float b,
+                                           __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(__fadd_rn(a, b)));
+}
+
+// LPR: lanes per row (16 to 256); NCH: the most chunks a lane holds;
+// MAP: kRows, kWindows or kResidual (`map` unused by kRows).
+template <typename T, int LPR, int NCH, int MAP>
 __global__ void __launch_bounds__(kThreads)
     layer_norm_kernel(const T* __restrict__ x,
                       const float* __restrict__ weight,
                       const float* __restrict__ bias, T* __restrict__ y,
-                      int rows, int C, float eps) {
+                      int rows, int C, float eps, RowMap map) {
   constexpr int V = Chunk<T>::V;
   constexpr int R = kThreads / LPR;  // rows per step
   constexpr int WPR = LPR / 32;      // warps per row, past 32 lanes
@@ -109,23 +200,39 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  auto load_row = [&](int r, uint4 (&dst)[NCH]) {
-    const T* xr = x + static_cast<size_t>(r) * C;
+  const T* p = static_cast<const T*>(map.p);
+  // row r's chunks into dst (kResidual: and its window row's into dst_p);
+  // false where kWindows maps r to padding (dst then zeros)
+  auto load_row = [&](int r, uint4 (&dst)[NCH], uint4 (&dst_p)[NCH]) {
+    int src = r;
+    if constexpr (MAP == kWindows) src = r < rows ? window_source(r, map) : -1;
+    const bool live = r < rows && src >= 0;
+    const T* xr = x + static_cast<size_t>(live ? src : 0) * C;
 #pragma unroll
     for (int k = 0; k < NCH; ++k)
-      dst[k] = r < rows && has[k]
+      dst[k] = live && has[k]
                    ? *reinterpret_cast<const uint4*>(xr + (l + LPR * k) * V)
                    : make_uint4(0, 0, 0, 0);
+    if constexpr (MAP == kResidual) {
+      const T* pr =
+          p + static_cast<size_t>(live ? window_target(r, map) : 0) * C;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k)
+        dst_p[k] = live && has[k] ? *reinterpret_cast<const uint4*>(
+                                        pr + (l + LPR * k) * V)
+                                  : make_uint4(0, 0, 0, 0);
+    }
+    return live;
   };
 
   const int step = gridDim.x * R;
-  uint4 cur[NCH], nxt[NCH];
-  load_row(blockIdx.x * R + sub, cur);
+  uint4 cur[NCH], nxt[NCH], cur_p[NCH], nxt_p[NCH];
+  bool cur_live = load_row(blockIdx.x * R + sub, cur, cur_p);
   // every thread of the block takes the same number of steps: the
   // shuffles and the barrier need all of them
   for (int base = blockIdx.x * R, it = 0; base < rows; base += step, ++it) {
     const int r = base + sub;
-    load_row(r + step, nxt);
+    const bool nxt_live = load_row(r + step, nxt, nxt_p);
 
     float v[NCH][V];
     float s = 0.f;
@@ -133,6 +240,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
       unpack(cur[k], v[k], T());
+      if constexpr (MAP == kResidual) {
+        float pv[V];
+        unpack(cur_p[k], pv, T());
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[k][e] = add_round(v[k][e], pv[e], T());
+      }
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         s += v[k][e];
@@ -151,9 +264,9 @@ __global__ void __launch_bounds__(kThreads)
       s = ss = 0.f;
 #pragma unroll
       for (int i = 0; i < WPR; ++i) {
-        const float2 p = slot[sub * WPR + i];
-        s += p.x;
-        ss += p.y;
+        const float2 pp = slot[sub * WPR + i];
+        s += pp.x;
+        ss += pp.y;
       }
     }
     // the plain version's op order, each op rounded on its own (no fused
@@ -176,12 +289,26 @@ __global__ void __launch_bounds__(kThreads)
             const float mul = __fmul_rn(rs, w[k][e]);
             o[e] = __fadd_rn(__fmul_rn(__fsub_rn(v[k][e], mu), mul), b[k][e]);
           }
+          if constexpr (MAP == kWindows) {  // padding stays exact zeros
+            if (!cur_live) {
+#pragma unroll
+              for (int e = 0; e < V; ++e) o[e] = 0.f;
+            }
+          }
           store_chunk(yr + (l + LPR * k) * V, o);
+          if constexpr (MAP == kResidual)
+            store_chunk(static_cast<T*>(map.sum) + static_cast<size_t>(r) * C
+                            + (l + LPR * k) * V,
+                        v[k]);
         }
       }
     }
 #pragma unroll
-    for (int k = 0; k < NCH; ++k) cur[k] = nxt[k];
+    for (int k = 0; k < NCH; ++k) {
+      cur[k] = nxt[k];
+      if constexpr (MAP == kResidual) cur_p[k] = nxt_p[k];
+    }
+    cur_live = nxt_live;
   }
 }
 
@@ -189,11 +316,12 @@ constexpr int kMaxDevices = 64;
 
 // Blocks of the persistent grid: as many as are resident on the current
 // device at once, and no more than the row steps.
-template <typename T, int LPR, int NCH>
+template <typename T, int LPR, int NCH, int MAP>
 int launch_one(const void* x, const void* w, const void* b, void* y,
-               int rows, int C, float eps, cudaStream_t s) {
+               int rows, int C, float eps, const RowMap& map,
+               cudaStream_t s) {
   static int resident[kMaxDevices] = {};  // per instantiation and device
-  auto kernel = layer_norm_kernel<T, LPR, NCH>;
+  auto kernel = layer_norm_kernel<T, LPR, NCH, MAP>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -216,27 +344,74 @@ int launch_one(const void* x, const void* w, const void* b, void* y,
       static_cast<int>(steps < resident[dev] ? steps : resident[dev]);
   kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<T*>(y), rows, C, eps);
+      static_cast<const float*>(b), static_cast<T*>(y), rows, C, eps, map);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int MAP>
 int launch(const void* x, const void* w, const void* b, void* y, int rows,
-           int C, float eps, void* stream) {
+           int C, float eps, const RowMap& map, void* stream) {
   const int chunks = C / Chunk<T>::V;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunks <= 16) return launch_one<T, 16, 1>(x, w, b, y, rows, C, eps, s);
-  if (chunks <= 32) return launch_one<T, 32, 1>(x, w, b, y, rows, C, eps, s);
-  if (chunks <= 64) return launch_one<T, 64, 1>(x, w, b, y, rows, C, eps, s);
+  if (chunks <= 16)
+    return launch_one<T, 16, 1, MAP>(x, w, b, y, rows, C, eps, map, s);
+  if (chunks <= 32)
+    return launch_one<T, 32, 1, MAP>(x, w, b, y, rows, C, eps, map, s);
+  if (chunks <= 64)
+    return launch_one<T, 64, 1, MAP>(x, w, b, y, rows, C, eps, map, s);
   if (chunks <= 128)
-    return launch_one<T, 128, 1>(x, w, b, y, rows, C, eps, s);
+    return launch_one<T, 128, 1, MAP>(x, w, b, y, rows, C, eps, map, s);
   if (chunks <= 256)
-    return launch_one<T, 256, 1>(x, w, b, y, rows, C, eps, s);
+    return launch_one<T, 256, 1, MAP>(x, w, b, y, rows, C, eps, map, s);
   if constexpr (Chunk<T>::V == 4) {  // fp32 up to C = 2048
     if (chunks <= 512)
-      return launch_one<T, 256, 2>(x, w, b, y, rows, C, eps, s);
+      return launch_one<T, 256, 2, MAP>(x, w, b, y, rows, C, eps, map, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map of `images` images of h x w tokens into windows of ws x ws,
+// shifted by `shift`; false where a size is out of range.
+bool make_map(int images, int h, int w, int ws, int shift, RowMap* m) {
+  if (images <= 0 || h <= 0 || w <= 0 || ws <= 0 || shift < 0 ||
+      shift >= ws)
+    return false;
+  m->h = h, m->w = w, m->ws = ws, m->shift = shift;
+  m->hp = (h + ws - 1) / ws * ws;
+  m->wp = (w + ws - 1) / ws * ws;
+  m->nw_w = m->wp / ws;
+  m->n_win = ws * ws;
+  m->win = make_div(m->n_win);
+  m->wsd = make_div(ws);
+  return true;
+}
+
+template <typename T>
+int windows(const void* x, const void* w, const void* b, void* y,
+            int images, int C, float eps, int h, int wd, int ws, int shift,
+            void* stream) {
+  RowMap m{};
+  if (!make_map(images, h, wd, ws, shift, &m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  m.img = make_div(m.hp * m.wp);
+  m.wrow = make_div(m.nw_w);
+  return launch<T, kWindows>(x, w, b, y, images * m.hp * m.wp, C, eps, m,
+                             stream);
+}
+
+template <typename T>
+int residual(const void* x, const void* p, const void* w, const void* b,
+             void* sum, void* y, int images, int C, float eps, int h, int wd,
+             int ws, int shift, void* stream) {
+  RowMap m{};
+  if (!make_map(images, h, wd, ws, shift, &m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  m.p = p;
+  m.sum = sum;
+  m.img = make_div(h * wd);
+  m.wrow = make_div(wd);
+  return launch<T, kResidual>(x, w, b, y, images * h * wd, C, eps, m,
+                              stream);
 }
 
 }  // namespace
@@ -244,11 +419,47 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows,
 extern "C" int layer_norm_bf16(const void* x, const void* weight,
                                const void* bias, void* y, int rows, int C,
                                float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, weight, bias, y, rows, C, eps, stream);
+  return launch<__nv_bfloat16, kRows>(x, weight, bias, y, rows, C, eps,
+                                      RowMap{}, stream);
 }
 
 extern "C" int layer_norm_f32(const void* x, const void* weight,
                               const void* bias, void* y, int rows, int C,
                               float eps, void* stream) {
-  return launch<float>(x, weight, bias, y, rows, C, eps, stream);
+  return launch<float, kRows>(x, weight, bias, y, rows, C, eps, RowMap{},
+                              stream);
+}
+
+extern "C" int layer_norm_windows_bf16(const void* x, const void* weight,
+                                       const void* bias, void* y, int images,
+                                       int C, float eps, int h, int w, int ws,
+                                       int shift, void* stream) {
+  return windows<__nv_bfloat16>(x, weight, bias, y, images, C, eps, h, w, ws,
+                                shift, stream);
+}
+
+extern "C" int layer_norm_windows_f32(const void* x, const void* weight,
+                                      const void* bias, void* y, int images,
+                                      int C, float eps, int h, int w, int ws,
+                                      int shift, void* stream) {
+  return windows<float>(x, weight, bias, y, images, C, eps, h, w, ws, shift,
+                        stream);
+}
+
+extern "C" int layer_norm_residual_bf16(const void* x, const void* p,
+                                        const void* weight, const void* bias,
+                                        void* sum, void* y, int images, int C,
+                                        float eps, int h, int w, int ws,
+                                        int shift, void* stream) {
+  return residual<__nv_bfloat16>(x, p, weight, bias, sum, y, images, C, eps,
+                                 h, w, ws, shift, stream);
+}
+
+extern "C" int layer_norm_residual_f32(const void* x, const void* p,
+                                       const void* weight, const void* bias,
+                                       void* sum, void* y, int images, int C,
+                                       float eps, int h, int w, int ws,
+                                       int shift, void* stream) {
+  return residual<float>(x, p, weight, bias, sum, y, images, C, eps, h, w,
+                         ws, shift, stream);
 }

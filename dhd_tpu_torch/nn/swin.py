@@ -16,10 +16,15 @@ with ``attn_kernel`` / ``ln_kernel`` off, or autograd records the call: the
 kernels have no backward, so a call that needs gradients takes the plain
 version, as the JAX package runs its kernels only when ``not train``
 (``dhd_tpu/nn/swin.py:226,261``).  On CPU tensors the wrappers take their
-plain versions.  Module attributes follow the reference's key space
-(``patch_embed.{projection,norm}``, ``stages.i.blocks.j.{norm1,
-attn.w_msa.{relative_position_bias_table,qkv,proj},norm2,ffn.layers.0.0,
-ffn.layers.1}``, ``stages.i.downsample.{norm,reduction}``, ``norm{i}``).
+plain versions.  Where a block's LayerNorms take B5 and its DropPath keeps
+both branches whole (eval, or rate 0), the block runs two B5 launches in
+place of norm1, the pad, the shifted window partition, the window
+reverse, the attention residual and norm2 (``SwinBlock._fuses``); the
+numbers are the chain's, bit for bit.  Module attributes follow the
+reference's key space (``patch_embed.{projection,norm}``,
+``stages.i.blocks.j.{norm1, attn.w_msa.{relative_position_bias_table,qkv,
+proj},norm2,ffn.layers.0.0,ffn.layers.1}``,
+``stages.i.downsample.{norm,reduction}``, ``norm{i}``).
 Tokens run as (B, L, C) rows; the module takes (B, 3, H, W) images and
 returns NCHW maps.
 """
@@ -35,7 +40,9 @@ import torch.nn.functional as F
 
 from dhd_tpu_torch.ops.grad_mode import records_grad
 from dhd_tpu_torch.ops.layer_norm import (fused_layer_norm_cuda,
-                                          layer_norm_plain)
+                                          layer_norm_plain, padded,
+                                          swin_residual_norm_cuda,
+                                          swin_window_norm_cuda)
 from dhd_tpu_torch.ops.window_attention import (window_attention_cuda,
                                                 window_attention_plain)
 from dhd_tpu_torch.parallel.mesh import global_rand
@@ -201,17 +208,34 @@ class ShiftWindowMSA(nn.Module):
         h, w = hw
         b, _, c = x.shape
         ws = self.window_size
-        pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
+        hp, wp = padded(h, w, ws)
         y = x.reshape(b, h, w, c)
-        if pad_b or pad_r:             # padded tokens are exact zeros
-            y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
-        hp, wp = h + pad_b, w + pad_r
+        if hp > h or wp > w:           # padded tokens are exact zeros
+            y = F.pad(y, (0, 0, 0, wp - w, 0, hp - h))
         fwd, inv = _device_perms(hp, wp, h, w, ws, self.shift, x.device)
         mask = (_device_shift_mask(hp, wp, ws, self.shift, x.device, x.dtype)
                 if self.shift else None)
         wins = y.reshape(b, hp * wp, c).index_select(1, fwd)
         wins = self.w_msa(wins.reshape(-1, ws * ws, c), mask)
         return wins.reshape(b, -1, c).index_select(1, inv)
+
+    def fused(self, x: torch.Tensor, hw: Tuple[int, int],
+              norm1: "FusedLayerNorm", norm2: "FusedLayerNorm"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``x + self(norm1(x), hw)`` and its ``norm2``, with the pad, the
+        shift, the partition, the reverse and the residual add inside the
+        two LayerNorm launches (kernel B5's row maps,
+        ``ops/layer_norm.py``): the same numbers, bit for bit."""
+        h, w = hw
+        ws = self.window_size
+        hp, wp = padded(h, w, ws)
+        mask = (_device_shift_mask(hp, wp, ws, self.shift, x.device, x.dtype)
+                if self.shift else None)
+        wins = swin_window_norm_cuda(x, norm1.weight, norm1.bias, norm1.eps,
+                                     hw, ws, self.shift)
+        wins = self.w_msa(wins.reshape(-1, ws * ws, x.shape[-1]), mask)
+        return swin_residual_norm_cuda(x, wins, norm2.weight, norm2.bias,
+                                       norm2.eps, hw, ws, self.shift)
 
 
 class FFN(nn.Module):
@@ -292,8 +316,23 @@ class SwinBlock(nn.Module):
     def _residuals(self, x: torch.Tensor, hw: Tuple[int, int],
                    mask1: Optional[torch.Tensor],
                    mask2: Optional[torch.Tensor]) -> torch.Tensor:
+        if self._fuses(x, mask1, mask2):
+            x, y = self.attn.fused(x, hw, self.norm1, self.norm2)
+            return x + self.ffn(y)
         x = x + self.dp1(self.attn(self.norm1(x), hw), mask1)
         return x + self.dp2(self.ffn(self.norm2(x)), mask2)
+
+    def _fuses(self, x: torch.Tensor, mask1: Optional[torch.Tensor],
+               mask2: Optional[torch.Tensor]) -> bool:
+        """Whether the call runs norm1 with the attention's data movement,
+        and its residual with norm2, as two LayerNorm launches
+        (``ShiftWindowMSA.fused``): where DropPath keeps both branches
+        whole (no masks: eval, or rate 0) and the LayerNorms take kernel
+        B5, on a CUDA tensor with the kernel on and no autograd record (the
+        kernels have no backward)."""
+        return (mask1 is None and mask2 is None and x.is_cuda
+                and self.norm1.kernel and self.norm2.kernel
+                and not records_grad(x, *self.parameters()))
 
 
 class PatchMerging(nn.Module):

@@ -6,7 +6,11 @@ from dhd_tpu_torch.ops.cost_volume_cuda import (cv_cost_plain,
                                                 stereo_cost_volume_cuda)
 from dhd_tpu_torch.ops.dvr import render, render_expected_depth, render_rays
 from dhd_tpu_torch.ops.layer_norm import (fused_layer_norm_cuda,
-                                          layer_norm_plain)
+                                          layer_norm_plain,
+                                          residual_norm_plain,
+                                          swin_residual_norm_cuda,
+                                          swin_window_norm_cuda,
+                                          window_norm_plain)
 from dhd_tpu_torch.ops.mghs_pool_cuda import (mghs_pool_cuda,
                                               mghs_pool_plan_plain)
 from dhd_tpu_torch.ops.segment_sum import (segment_sum_pooling,
@@ -27,9 +31,11 @@ __all__ = ["PoolIndices", "PoolPlan", "bev_pool", "bev_pool_v2",
            "compute_pool_indices", "cv_cost_plain", "cv_plan_from_static",
            "fused_layer_norm_cuda", "grid_sample_2d", "layer_norm_plain",
            "mghs_pool", "mghs_pool_cuda", "mghs_pool_plan_plain", "render",
-           "render_expected_depth", "render_rays",
+           "render_expected_depth", "render_rays", "residual_norm_plain",
            "segment_sum_pooling", "sorted_segment_sum",
            "sorted_segment_sum_plain", "stereo_cost_volume",
            "stereo_cost_volume_cuda", "stereo_reproject_grid",
+           "swin_residual_norm_cuda", "swin_window_norm_cuda",
            "up_place_cuda", "up_place_plain",
-           "window_attention_cuda", "window_attention_plain"]
+           "window_attention_cuda", "window_attention_plain",
+           "window_norm_plain"]

@@ -49,7 +49,8 @@ MAX_RECORDS = 1 << 16           # spans, and launch marks, kept at most
 # the kernel wrappers, whose launches the counters hold under these names
 KERNEL_WRAPPERS = ("mghs_pool_cuda", "pool_plan_cuda", "sorted_segment_sum",
                    "stereo_cost_volume_cuda", "window_attention_cuda",
-                   "fused_layer_norm_cuda", "unet_epilogue_cuda")
+                   "fused_layer_norm_cuda", "unet_epilogue_cuda",
+                   "swin_window_norm_cuda", "swin_residual_norm_cuda")
 
 _spans: List[Tuple[str, int, int, int]] = []
 _marks: List[Tuple[str, int]] = []
@@ -167,10 +168,11 @@ def _kernel_key(name: str, collapse: bool) -> str:
 
 def kernel_launches() -> Dict[str, int]:
     """The launch counters of the CUDA kernels' wrappers, by name: B1
-    (``mghs_pool_cuda``) and its plan (``pool_plan_cuda``), B2, B3, B4, B5
-    and the UNet epilogues (``unet_epilogue_cuda``, both of
-    ``ops/unet_epilogue.py``'s).  A wrapper counts only where it launches
-    its kernel."""
+    (``mghs_pool_cuda``) and its plan (``pool_plan_cuda``), B2, B3, B4, B5,
+    the UNet epilogues (``unet_epilogue_cuda``, both of
+    ``ops/unet_epilogue.py``'s) and B5's two Swin block launches
+    (``swin_window_norm_cuda``, ``swin_residual_norm_cuda``).  A wrapper
+    counts only where it launches its kernel."""
     return {name: _counters.get(name, 0) for name in KERNEL_WRAPPERS}
 
 

@@ -23,9 +23,10 @@ from dhd_tpu_torch.models import build_model
 from dhd_tpu_torch.ops import layer_norm_plain, window_attention_plain
 from dhd_tpu_torch.train import (AdamWSchedule, ModelEMA, gradient_errors,
                                  train_step, zero_gradient_params)
-from torch_cases import (attention_share, check_cost_volume, check_plan,
-                         check_pool, check_pool_repeats, full_fp32, launches,
-                         ln_share, swin_launches, tiny_dhd_l,
+from torch_cases import (attention_share, chain_share, check_cost_volume,
+                         check_plan, check_pool, check_pool_repeats,
+                         full_fp32, launches, ln_share, residual_norm_chain,
+                         swin_launches, tiny_dhd_l, window_norm_chain,
                          write_nuscenes_fixture)
 
 pytestmark = pytest.mark.cuda
@@ -48,7 +49,9 @@ TRAIN_CALLS = (("dhd_tpu_torch.models.dhd", "build_pool_plan"),
                ("dhd_tpu_torch.models.dhd", "mghs_pool_cuda"),
                ("dhd_tpu_torch.ops.cost_volume", "stereo_cost_volume_cuda"),
                ("dhd_tpu_torch.nn.swin", "window_attention_cuda"),
-               ("dhd_tpu_torch.nn.swin", "fused_layer_norm_cuda"))
+               ("dhd_tpu_torch.nn.swin", "fused_layer_norm_cuda"),
+               ("dhd_tpu_torch.nn.swin", "swin_window_norm_cuda"),
+               ("dhd_tpu_torch.nn.swin", "swin_residual_norm_cuda"))
 
 
 @pytest.fixture(scope="module")
@@ -308,7 +311,9 @@ def test_a_small_train_step_on_the_card_follows_the_cpu(cuda, name):
         assert want["stereo_cost_volume_cuda"] > 0
     if cfg.backbone == "swin_base":
         # the history frame's whole Swin and the extra stereo frame's stage
-        # 0; the key frame takes the plain versions under autograd
+        # 0; the key frame takes the plain versions under autograd; with
+        # the DropPath rates at 0 every block's LayerNorms take the fused
+        # launches
         want.update(swin_launches(cfg, 1, 1))
     assert card_launches == want
     zero = zero_gradient_params(model)
@@ -326,7 +331,8 @@ def _swin_holds(shares: dict):
     against their plain versions at every call of a step, on the spot (a
     DHD-L step makes 85 of them, whose inputs would take GBs): the worst
     share of each call's bar (``torch_cases.attention_share``,
-    ``ln_share``) gathered under ``shares[name]``."""
+    ``ln_share``) gathered under ``shares[name]``; B5's two Swin block
+    launches against their chain, bit for bit (``chain_share``)."""
     def attention(args, out_k):
         shares.setdefault("window_attention_cuda", []).append(
             attention_share(out_k, window_attention_plain(*args)))
@@ -335,8 +341,16 @@ def _swin_holds(shares: dict):
         x, w, b, eps = args
         shares.setdefault("fused_layer_norm_cuda", []).append(
             ln_share(y_k, layer_norm_plain(x, w, b, eps), x, w, b, eps))
+    def chain(name, fn):
+        def hold(args, out):
+            shares.setdefault(name, []).append(chain_share(out, fn(*args)))
+        return hold
     return {"window_attention_cuda": attention,
-            "fused_layer_norm_cuda": layer_norm}
+            "fused_layer_norm_cuda": layer_norm,
+            "swin_window_norm_cuda": chain("swin_window_norm_cuda",
+                                           window_norm_chain),
+            "swin_residual_norm_cuda": chain("swin_residual_norm_cuda",
+                                             residual_norm_chain)}
 
 
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
@@ -349,7 +363,8 @@ def test_dhd_l_trains_on_the_card(cuda, precision):
     neck twice a step, the BEV encoder once); see :func:`_train`.  Then
     one more step with every kernel held against its plain version at the
     inputs the step gives it: B1, its plan kernels and B3 at the history
-    and the key frame's, B4 and B5 at each of their calls."""
+    and the key frame's, B4 and B5 at each of their calls (B5's fused
+    launches against the block's chain, bit for bit)."""
     cfg = get_config("dhd_l")
     dtype = torch.bfloat16 if precision == "bf16" else None
     try:
@@ -360,8 +375,9 @@ def test_dhd_l_trains_on_the_card(cuda, precision):
         torch.cuda.empty_cache()
         run = _train(cfg, cuda, 1, dtype)
     # B4 and B5 in the history frame's whole Swin and the extra stereo
-    # frame's stage 0; the key frame takes the plain versions under autograd
-    swin = swin_launches(cfg, 1, 1)
+    # frame's stage 0, B5's fused launches in their first block (DropPath
+    # rate 0); the key frame takes the plain versions under autograd
+    swin = swin_launches(cfg, 1, 1, train=True)
     per_step = {"mghs_pool_cuda": 2, "pool_plan_cuda": 2,
                 "stereo_cost_volume_cuda": 2, **swin}
     assert run["launches"] == {k: STEPS * v for k, v in per_step.items()}

@@ -2,7 +2,8 @@
 versions: at small shapes chosen for their edges, and at the shapes the
 served models give them (the inputs ``chip_variants.py`` makes: each
 preset's served pool plan, DHD-M's and DHD-L's stereo maps, DHD-L's Swin-B
-stages and LayerNorms, the ``--what pool`` segment sums).  Every test here
+stages and LayerNorms, the ``--what pool`` segment sums), and B5's fused
+Swin block launches against the block's chain, bit for bit.  Every test here
 needs a CUDA device and skips without one.  No JAX here: on the GPU
 machine run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -20,11 +21,13 @@ from dhd_tpu_torch.ops import (build_cv_plan, build_pool_plan,
                                mghs_pool_cuda, mghs_pool_plan_plain,
                                segment_sum_pooling, sorted_segment_sum,
                                sorted_segment_sum_plain,
-                               stereo_cost_volume_cuda, window_attention_cuda,
-                               window_attention_plain)
+                               stereo_cost_volume_cuda,
+                               swin_residual_norm_cuda, swin_window_norm_cuda,
+                               window_attention_cuda, window_attention_plain)
 from dhd_tpu_torch.profiling import kernel_launches
-from torch_cases import (check_cost_volume, check_plan, check_pool,
-                         check_pool_repeats, ln_share)
+from torch_cases import (bits_apart, check_cost_volume, check_plan,
+                         check_pool, check_pool_repeats, ln_share,
+                         residual_norm_chain, window_norm_chain)
 
 pytestmark = pytest.mark.cuda
 # B1's served plans: DHD-S's rig, DHD-M's and DHD-L's streamed frame, and
@@ -539,6 +542,149 @@ def test_layer_norm_kernel_rejects_bad_inputs(cuda):
     assert kernel_launches()["fused_layer_norm_cuda"] == before
 
 
+def _block_case(dev, dtype, images, h, w, c, ws, seed):
+    """A Swin block's norm inputs on the card: tokens with NaN rows and
+    +inf / -inf elements, norm1's and norm2's affines, and an attention
+    output in window order with a NaN row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    x = 2 * torch.randn((images, h * w, c), generator=g, device=dev) + 0.3
+    x[0, 1] = float("nan")
+    x[-1, -1, 3], x[-1, h * w // 2, 5] = float("inf"), -float("inf")
+    wins = torch.randn((images * hp * wp, c), generator=g, device=dev)
+    wins[7] = float("nan")
+    aff = [(1 + 0.2 * torch.randn(c, generator=g, device=dev),
+            0.3 * torch.randn(c, generator=g, device=dev)) for _ in range(2)]
+    return x.to(dtype), wins.to(dtype), aff
+
+
+def _dhd_l_block_shapes():
+    """(images, h, w, C, ws) of each DHD-L Swin-B stage at B=1 (6 images),
+    and two small maps that pad both sides and wrap the shift."""
+    return ([(DHD_L.num_cams, h, w, c, DHD_L.swin_window)
+             for h, w, _, _, c, _, _ in
+             chip_variants.swin_stage_shapes(DHD_L)]
+            + [(2, 7, 9, 16, 4), (3, 13, 5, 64, 7)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shifted", [False, True],
+                         ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("shape", _dhd_l_block_shapes(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_block_norms_match_the_chain(cuda, shape, shifted, dtype):
+    """B5's two Swin block launches against the block's chain on the
+    card (``torch_cases.window_norm_chain``: B5, ``F.pad``, the shifted
+    window gather; ``residual_norm_chain``: the reverse gather, the add,
+    B5), bit for bit, NaN and inf rows included, padding exact zeros:
+    each at DHD-L's four stage shapes and two small ones, one launch each,
+    counted under its own name."""
+    images, h, w, c, ws = shape
+    x, wins, ((w1, b1), (w2, b2)) = _block_case(cuda, dtype, images, h, w,
+                                                c, ws, seed=h + c)
+    shift = ws // 2 if shifted else 0
+    before = kernel_launches()
+    got = swin_window_norm_cuda(x, w1, b1, 1e-6, (h, w), ws, shift)
+    s, y = swin_residual_norm_cuda(x, wins, w2, b2, 1e-6, (h, w), ws, shift)
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    assert {k: after[k] - v for k, v in before.items() if after[k] != v} \
+        == {"swin_window_norm_cuda": 1, "swin_residual_norm_cuda": 1}
+    assert bits_apart(got, window_norm_chain(x, w1, b1, 1e-6, (h, w), ws,
+                                             shift)) == 0
+    want_s, want_y = residual_norm_chain(x, wins, w2, b2, 1e-6, (h, w), ws,
+                                         shift)
+    assert bits_apart(s, want_s) == 0 and bits_apart(y, want_y) == 0
+    assert bool(torch.isnan(y).any()) and bool(torch.isnan(got).any())
+
+
+def test_block_norms_reject_bad_inputs(cuda):
+    x, wins, ((w, b), _) = _block_case(cuda, torch.bfloat16, 2, 7, 9, 16, 4,
+                                       seed=3)
+    before = kernel_launches()
+    with pytest.raises(ValueError, match="wins"):
+        swin_residual_norm_cuda(x, wins[1:], w, b, 1e-6, (7, 9), 4, 2)
+    with pytest.raises(ValueError, match="wins"):
+        swin_residual_norm_cuda(x, wins.float(), w, b, 1e-6, (7, 9), 4, 2)
+    with pytest.raises(ValueError, match="tokens"):
+        swin_window_norm_cuda(x, w, b, 1e-6, (9, 9), 4, 2)
+    with pytest.raises(ValueError, match="C=12"):
+        swin_window_norm_cuda(x[..., :12].contiguous(), w[:12], b[:12], 1e-6,
+                              (7, 9), 4, 2)
+    with pytest.raises(TypeError):
+        swin_window_norm_cuda(x.half(), w, b, 1e-6, (7, 9), 4, 2)
+    assert kernel_launches() == before
+
+
+def _swin_b(dev):
+    """DHD-L's Swin-B in bf16 and eval on the card, LayerNorm affines and
+    bias tables drawn at random so that they matter."""
+    from dhd_tpu_torch.nn.swin import SwinTransformer
+
+    torch.manual_seed(0)
+    mod = SwinTransformer(DHD_L.swin_embed_dims, DHD_L.swin_depths,
+                          DHD_L.swin_num_heads, DHD_L.swin_window,
+                          DHD_L.swin_out_indices, return_stereo_feat=True)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            if "norm" in name or "relative_position" in name:
+                p.add_(0.2 * torch.randn(p.shape))
+    return mod.to(dev, torch.bfloat16).eval()
+
+
+def test_a_whole_swin_b_matches_the_chain(cuda, monkeypatch):
+    """DHD-L's Swin-B (B=1, six 512x1408 images, bf16, eval): with B5's
+    fused block launches its outputs equal the chain's bit for bit, eager
+    and replayed from a CUDA graph; a frame counts 48 fused launches (24
+    of each) and 6 plain LayerNorms, at the graph's capture and not at its
+    replays."""
+    from dhd_tpu_torch.nn.swin import SwinBlock
+
+    mod = _swin_b(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    h, w = DHD_L.vt.input_size
+    x = torch.randn((DHD_L.num_cams, 3, h, w), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    per_frame = {"window_attention_cuda": 24, "fused_layer_norm_cuda": 6,
+                 "swin_window_norm_cuda": 24, "swin_residual_norm_cuda": 24}
+
+    def since(before):
+        after = kernel_launches()
+        return {k: after[k] - v for k, v in before.items() if after[k] != v}
+
+    with torch.no_grad():
+        before = kernel_launches()
+        eager = mod(x)
+        assert since(before) == per_frame
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mod(static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernel_launches()
+        with torch.cuda.graph(graph):
+            replayed = mod(static)
+        assert since(before) == per_frame
+        static.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        before = kernel_launches()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert since(before) == {}
+        fresh = [o.clone() for o in replayed]
+        monkeypatch.setattr(SwinBlock, "_fuses", lambda self, *a: False)
+        before = kernel_launches()
+        chain = mod(x)
+        assert since(before) == {"window_attention_cuda": 24,
+                                 "fused_layer_norm_cuda": 54}
+        chain_fresh = mod(static)
+    assert len(eager) == len(chain) == 3
+    for a, b, fa, fb in zip(eager, chain, fresh, chain_fresh):
+        assert bits_apart(a, b) == 0 and bits_apart(fa, fb) == 0
+
+
 def _attn_inputs(dev, dtype, ws, heads, hd, shifted, grid=(2, 2), images=3,
                  seed=7):
     """Unit-normal qkv and bias (tools/check_attn_parity.py) for
@@ -926,7 +1072,8 @@ def test_swin_gradients_on_the_card(cuda):
     """A small Swin (embed 32, heads of 16, window 4) in fp32 under
     training on the card against the same weights on the CPU: every
     parameter's gradient within 2e-4 of its peak (B4 and B5 step aside
-    under autograd).  Under no_grad the same module launches them."""
+    under autograd, B5's fused block launches too).  Under no_grad the
+    same module launches them."""
     from dhd_tpu_torch.nn.swin import SwinTransformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -944,11 +1091,12 @@ def test_swin_gradients_on_the_card(cuda):
          for o in cpu(x)]
     def b4_b5():
         n = kernel_launches()
-        return n["window_attention_cuda"], n["fused_layer_norm_cuda"]
-    attn, ln = b4_b5()
+        return (n["window_attention_cuda"], n["fused_layer_norm_cuda"],
+                n["swin_window_norm_cuda"], n["swin_residual_norm_cuda"])
+    attn, ln, win, res = b4_b5()
     g_gpu = _grads(gpu, lambda: sum((o * w.to(cuda)).sum()
                                     for o, w in zip(gpu(x.to(cuda)), r)))
-    assert b4_b5() == (attn, ln)
+    assert b4_b5() == (attn, ln, win, res)
     g_cpu = _grads(cpu, lambda: sum((o * w).sum() for o, w in zip(cpu(x), r)))
     assert set(g_gpu) == set(g_cpu) == {n for n, _ in cpu.named_parameters()}
     for n, g in g_cpu.items():
@@ -956,8 +1104,9 @@ def test_swin_gradients_on_the_card(cuda):
         assert float((g_gpu[n] - g).abs().max()) / peak < 2e-4, n
     with torch.no_grad():
         gpu(x.to(cuda))
-    assert kernel_launches()["window_attention_cuda"] == attn + 4
-    assert kernel_launches()["fused_layer_norm_cuda"] == ln + 11
+    # the four blocks' LayerNorms as B5's fused launches, the patch
+    # embedding's, the merge's and the out norm's plain
+    assert b4_b5() == (attn + 4, ln + 3, win + 4, res + 4)
 
 
 def test_view_transformer_gradients_on_the_card(cuda):

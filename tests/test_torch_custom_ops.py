@@ -18,7 +18,8 @@ from dhd_tpu_torch.profiling import kernel_launches
 
 BF16 = torch.bfloat16
 OPS = ("mghs_pool", "pool_plan", "stereo_cost", "window_attention",
-       "layer_norm", "unet_bn_relu", "unet_up_place")
+       "layer_norm", "unet_bn_relu", "unet_up_place", "swin_window_norm",
+       "swin_residual_norm")
 
 
 def _empty(*shape, dtype=torch.float32):
@@ -49,6 +50,22 @@ def _unet_up_place():
 def _layer_norm():
     return O.fused_layer_norm_cuda(_empty(10, 64, dtype=BF16), _empty(64),
                                    _empty(64)), ((10, 64), BF16)
+
+
+def _swin_window_norm():
+    # DHD-L's stage 3: 16 x 44 tokens padded to 24 x 48, windows of 12
+    return O.swin_window_norm_cuda(
+        _empty(6, 16 * 44, 1024, dtype=BF16), _empty(1024), _empty(1024),
+        1e-6, (16, 44), 12, 6), ((6 * 24 * 48, 1024), BF16)
+
+
+def _swin_residual_norm():
+    x = _empty(6, 16 * 44, 1024, dtype=BF16)
+    s, y = O.swin_residual_norm_cuda(
+        x, _empty(6 * 8, 144, 1024, dtype=BF16), _empty(1024), _empty(1024),
+        1e-6, (16, 44), 12, 6)
+    assert s.shape == x.shape and s.dtype == BF16
+    return y, ((6, 16 * 44, 1024), BF16)
 
 
 def _window_attention():
@@ -95,7 +112,9 @@ def _mghs_pool():
 CASES = {"layer_norm": _layer_norm, "window_attention": _window_attention,
          "stereo_cost": _stereo_cost, "pool_plan": _pool_plan,
          "mghs_pool": _mghs_pool, "unet_bn_relu": _unet_bn_relu,
-         "unet_up_place": _unet_up_place}
+         "unet_up_place": _unet_up_place,
+         "swin_window_norm": _swin_window_norm,
+         "swin_residual_norm": _swin_residual_norm}
 
 
 def test_every_kernel_is_an_op():
@@ -134,3 +153,8 @@ def test_a_wrong_input_is_refused_before_the_op():
         with pytest.raises(ValueError, match="out"):
             O.up_place_cuda(_nhwc(1, 64, 24, 24), _empty(64, dtype=BF16),
                             _nhwc(1, 128, 23, 23))
+        with pytest.raises(ValueError, match="wins"):
+            O.swin_residual_norm_cuda(
+                _empty(6, 16 * 44, 64, dtype=BF16),
+                _empty(6 * 16 * 44, 64, dtype=BF16), _empty(64), _empty(64),
+                1e-6, (16, 44), 12, 6)

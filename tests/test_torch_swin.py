@@ -6,7 +6,11 @@ The JAX side runs its Pallas kernels in interpret mode and its XLA / flax
 paths; the port's wrappers take their plain versions on CPU tensors.
 Modules carry weights converted by the port's rule table
 (``dhd_tpu_torch.io.convert``), with the LayerNorm affines and the bias
-tables made random so that they matter."""
+tables made random so that they matter.  B5's two Swin block launches are
+held here by their row maps (the kernel's arithmetic against the chain's
+permutations), their plain versions against the block's chain, and the
+rule for which calls take them."""
+import contextlib
 from collections.abc import Mapping
 
 import jax
@@ -28,10 +32,16 @@ from dhd_tpu.ops.window_attention import (window_attention_pallas,
                                           window_attention_pallas_v2)
 from dhd_tpu_torch.io import convert as C
 from dhd_tpu_torch.nn import swin as S
+from dhd_tpu_torch.config import get_config
 from dhd_tpu_torch.ops import (fused_layer_norm_cuda, layer_norm_plain,
+                               swin_residual_norm_cuda, swin_window_norm_cuda,
                                window_attention_cuda, window_attention_plain)
+from dhd_tpu_torch.ops import layer_norm as L
 from dhd_tpu_torch.ops.window_attention import attention_scale
 from dhd_tpu_torch.profiling import kernel_launches
+from chip_variants import swin_stage_shapes
+from torch_cases import (bits_apart, residual_norm_chain, tiny_dhd_l,
+                         window_norm_chain)
 
 
 def _rel_to_peak(a, b):
@@ -179,19 +189,27 @@ def test_window_attention_bf16_rounds_the_scale_first():
     assert np.mean(got == want) > 0.99
 
 
-@pytest.mark.parametrize("wrapper", ["attention", "layer_norm"])
+@pytest.mark.parametrize("wrapper", ["attention", "layer_norm",
+                                     "window_norm", "residual_norm"])
 def test_wrappers_raise_off_the_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only on a CPU tensor: on any
     other device that is not CUDA it raises before it launches."""
     meta = torch.device("meta")
+    affine = (torch.empty(64, device=meta), torch.empty(64, device=meta))
+    x = torch.empty((2, 63, 64), device=meta)
     if wrapper == "attention":
         fn, args = window_attention_cuda, (
             torch.empty((2, 16, 96), device=meta),
             torch.empty((2, 16, 16), device=meta), None, 2)
-    else:
+    elif wrapper == "layer_norm":
         fn, args = fused_layer_norm_cuda, (
-            torch.empty((4, 64), device=meta),
-            torch.empty(64, device=meta), torch.empty(64, device=meta))
+            torch.empty((4, 64), device=meta), *affine)
+    elif wrapper == "window_norm":
+        fn, args = swin_window_norm_cuda, (x, *affine, 1e-6, (7, 9), 4, 2)
+    else:
+        fn, args = swin_residual_norm_cuda, (
+            x, torch.empty((160, 64), device=meta), *affine, 1e-6, (7, 9),
+            4, 2)
     before = kernel_launches()[fn.__name__]
     with pytest.raises(ValueError, match="unsupported device meta"):
         fn(*args)
@@ -221,6 +239,163 @@ def test_window_tables_equal_jax(h, w, ws, shift):
     np.testing.assert_array_equal(
         S.window_reverse(S.window_partition(torch.from_numpy(x), ws), ws,
                          hp, wp).numpy(), x)
+
+
+# ------------------------------------- B5's Swin block launches: row maps
+
+def _preset_windows():
+    """Each (h, w, ws, shift) a Swin of the presets reaches: DHD-L's four
+    stages and the tiny DHD-L's, unshifted and shifted."""
+    out = set()
+    for cfg in (get_config("dhd_l"), tiny_dhd_l(get_config)):
+        for h, w, *_ in swin_stage_shapes(cfg):
+            ws = cfg.swin_window
+            out |= {(h, w, ws, 0), (h, w, ws, ws // 2)}
+    return sorted(out)
+
+
+ODD_WINDOWS = [(7, 9, 4, 2), (9, 7, 5, 2), (1, 1, 4, 2), (5, 3, 4, 0),
+               (13, 5, 7, 3), (12, 12, 12, 6), (25, 37, 6, 3), (3, 4, 1, 0)]
+
+
+@pytest.mark.parametrize("h,w,ws,shift", _preset_windows() + ODD_WINDOWS)
+def test_window_row_maps_equal_the_perms(h, w, ws, shift):
+    """The row maps of B5's block launches (``ops/layer_norm.py:
+    window_rows``, ``residual_rows``: the kernel's arithmetic, divisions
+    by a multiply and a shift) against ``_window_perms`` (the chain's
+    gathers), over three images: each window row the token the padded,
+    shifted partition puts there (-1 on padding), each token the window
+    row the reverse brings back."""
+    hp, wp = L.padded(h, w, ws)
+    fwd, inv = S._window_perms(hp, wp, h, w, ws, shift)
+    si, sj = np.divmod(fwd.astype(np.int64), wp)
+    one = np.where((si < h) & (sj < w), si * w + sj, -1)
+    images = 3
+    want = np.concatenate([np.where(one >= 0, one + b * h * w, -1)
+                           for b in range(images)])
+    np.testing.assert_array_equal(L.window_rows(images, h, w, ws, shift),
+                                  want)
+    np.testing.assert_array_equal(
+        L.residual_rows(images, h, w, ws, shift),
+        np.concatenate([inv + b * hp * wp for b in range(images)]))
+
+
+def test_the_kernels_divisions_are_exact():
+    """``n // d`` by a multiply and a shift (``_divider``) for every
+    divisor the row maps take at the presets' and the odd windows, and
+    powers of two and 2^31 - 1, over 2^20 random n below 2^31 and the
+    edges."""
+    ds = {1, 2, 3, 7, 1 << 20, 2 ** 31 - 1}
+    for h, w, ws, _ in _preset_windows() + ODD_WINDOWS:
+        hp, wp = L.padded(h, w, ws)
+        ds |= {hp * wp, ws * ws, wp // ws, ws, h * w, w}
+    n = np.concatenate([np.random.default_rng(0).integers(0, 2 ** 31,
+                                                          1 << 20),
+                        np.arange(1 << 12), 2 ** 31 - 1 - np.arange(64)])
+    for d in sorted(ds):
+        np.testing.assert_array_equal(L._div(n, d), n // d, err_msg=str(d))
+
+
+def _block_inputs(dtype, h=7, w=9, c=16, images=2, ws=4, seed=11):
+    """Tokens with a NaN row, a +inf and a -inf element, norm affines, and
+    an attention output in window order with a NaN row."""
+    g = torch.Generator().manual_seed(seed)
+    hp, wp = L.padded(h, w, ws)
+    x = torch.randn((images, h * w, c), generator=g)
+    x[0, 3] = float("nan")
+    x[1, 5, 2], x[1, 6, 7] = float("inf"), -float("inf")
+    wins = torch.randn((images * hp * wp, c), generator=g)
+    wins[10] = float("nan")
+    w1, w2 = (1 + 0.2 * torch.randn(c, generator=g) for _ in range(2))
+    b1, b2 = (0.3 * torch.randn(c, generator=g) for _ in range(2))
+    return x.to(dtype), wins.to(dtype), (w1, b1), (w2, b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_block_norm_wrappers_take_their_plain_versions_on_the_cpu(dtype,
+                                                                   shift):
+    """On CPU tensors B5's block launches take their plain versions, which
+    equal the block's chain (B5's plain version, ``F.pad``, the window
+    gathers, the add) bit for bit, NaN and inf rows included, padding
+    exact zeros; nothing is counted."""
+    x, wins, (w1, b1), (w2, b2) = _block_inputs(dtype)
+    before = kernel_launches()
+    got = swin_window_norm_cuda(x, w1, b1, 1e-6, (7, 9), 4, shift)
+    assert bits_apart(got, window_norm_chain(x, w1, b1, 1e-6, (7, 9), 4,
+                                             shift)) == 0
+    pad = torch.from_numpy(L.window_rows(2, 7, 9, 4, shift) < 0)
+    assert bool(pad.any()) and not got[pad].any()
+    s, y = swin_residual_norm_cuda(x, wins, w2, b2, 1e-6, (7, 9), 4, shift)
+    want_s, want_y = residual_norm_chain(x, wins, w2, b2, 1e-6, (7, 9), 4,
+                                         shift)
+    assert bits_apart(s, want_s) == 0 and bits_apart(y, want_y) == 0
+    assert s.dtype == y.dtype == dtype and s.shape == x.shape
+    assert kernel_launches() == before
+
+
+def test_the_window_check_refuses_a_wrong_map():
+    """B5's block launches refuse, before they launch, tokens that are
+    not the map's and a shift outside the window."""
+    x = torch.empty((2, 63, 16))
+    with pytest.raises(ValueError, match="tokens"):
+        L._window_args(x, (7, 8), 4, 0)
+    with pytest.raises(ValueError, match="shift"):
+        L._window_args(x, (7, 9), 4, 4)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, for the engage rule."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("case,want", [
+    ("eval", True), ("train_rate0", True), ("cpu", False),
+    ("train_droppath", False), ("grad", False), ("input_grad", False),
+    ("ln_kernel_off", False)])
+def test_which_blocks_fuse(case, want):
+    """A block takes B5's two fused launches on a CUDA tensor where its
+    LayerNorms take B5 and autograd records nothing, and its DropPath
+    keeps both branches whole (eval, or training at rate 0); training
+    with DropPath masks, autograd, the CPU and ``ln_kernel=False`` keep the
+    chain."""
+    blk = S.SwinBlock(16, 2, 4, shift=True, ln_kernel=case != "ln_kernel_off",
+                      drop_path=0.0 if case == "train_rate0" else 0.2)
+    blk.train(case.startswith("train"))
+    x = torch.zeros(2, 63, 16)
+    if case != "cpu":
+        x = x.as_subclass(_OnCard)
+    if case == "input_grad":
+        blk.requires_grad_(False)
+        x.requires_grad_(True)
+    gen = torch.Generator().manual_seed(0)
+    with contextlib.nullcontext() if case.endswith("grad") \
+            else torch.no_grad():
+        masks = (blk.dp1.draw(x, gen), blk.dp2.draw(x, gen))
+        assert blk._fuses(x, *masks) is want
+
+
+def test_the_chain_runs_where_blocks_do_not_fuse(monkeypatch):
+    """Training with DropPath masks, autograd and every CPU call run the
+    block's chain: a Swin's forwards there never reach the fused
+    wrappers, and its outputs are the chain's."""
+    def refuse(*args):
+        raise AssertionError("a fused block launch off its path")
+    monkeypatch.setattr(S, "swin_window_norm_cuda", refuse)
+    monkeypatch.setattr(S, "swin_residual_norm_cuda", refuse)
+    mod = S.SwinTransformer(16, (2, 2), (2, 4), 4, (1,), drop_path_rate=0.2)
+    x = torch.randn(1, 3, 32, 48, generator=torch.Generator().manual_seed(4))
+    mod.train()
+    with torch.no_grad():
+        mod(x, generator=torch.Generator().manual_seed(1))
+    sum(o.sum() for o in mod(x)).backward()
+    mod.eval()
+    with torch.no_grad():
+        mod(x)
 
 
 # ------------------------------------------------------------------ modules

@@ -6,6 +6,9 @@ which run without the JAX package (``--noconftest``), import it.
   against the CPU;
 - :func:`launches` and :func:`swin_launches`: the kernels' launches
   counted, and those a Swin backbone makes;
+- :func:`chain_share`: B5's two Swin block launches held bit for bit
+  against the block's chain they stand for (``chip_variants.
+  window_norm_chain``, ``residual_norm_chain``);
 - the holds of the kernels at real inputs (a served plan, a DHD-L-sized
   map, a train step's own calls), each at its bar: :func:`check_pool`,
   :func:`check_plan`, :func:`check_cost_volume`, :func:`ln_share`,
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 
 from chip_variants import (CV_ATOL, CV_RTOL, POOL_ULP_TOL, TERM_TOL,
-                           bf16_ulp_at, bf16_ulp_diff, sum_error_share)
+                           bf16_ulp_at, bf16_ulp_diff, bits_apart,
+                           residual_norm_chain, sum_error_share,
+                           window_norm_chain)
 from dhd_tpu_torch.ops import (cv_cost_plain, mghs_pool_cuda,
                                mghs_pool_plan_plain, stereo_cost_volume_cuda)
 from dhd_tpu_torch.ops.mghs_pool_cuda import pool_plan_cuda, pool_plan_plain
@@ -60,17 +65,40 @@ def launches(names=None) -> dict:
             if v and (names is None or k in names)}
 
 
-def swin_launches(cfg, frames: int, stage0_frames: int = 0) -> dict:
+def swin_launches(cfg, frames: int, stage0_frames: int = 0,
+                  train: bool = False) -> dict:
     """B4's and B5's launches when ``frames`` images run ``cfg``'s whole
     Swin and ``stage0_frames`` only its patch embedding and stage 0 (the
-    extra stereo frame): a window attention a block; a LayerNorm for the
-    patch embedding, two a block, one a patch merge and one an output
-    stage (DHD-L's whole Swin: 24 and 54)."""
+    extra stereo frame), outside autograd: a window attention a block; a
+    LayerNorm for the patch embedding, one a patch merge and one an
+    output stage; and a block's two LayerNorms, which carry its window
+    maps and attention residual (``swin_window_norm_cuda``,
+    ``swin_residual_norm_cuda``) where its DropPath keeps both branches
+    whole: every block in eval or at DropPath rate 0 (DHD-L's whole Swin:
+    24 attentions, 6 plain LayerNorms and 24 of each fused one); with
+    ``train``, in training at the Swin's own rates (rising from 0 to 0.1),
+    only the first block, whose rate is 0, and the other blocks' two
+    LayerNorms launch plain B5."""
     d = cfg.swin_depths
-    whole = 1 + 2 * sum(d) + len(d) - 1 + len(cfg.swin_out_indices)
+    fused_whole, fused_stage0 = (1, 1) if train else (sum(d), d[0])
+    whole = (1 + 2 * sum(d) + len(d) - 1 + len(cfg.swin_out_indices)
+             - 2 * fused_whole)
+    fused = frames * fused_whole + stage0_frames * fused_stage0
     return {"window_attention_cuda": frames * sum(d) + stage0_frames * d[0],
             "fused_layer_norm_cuda": frames * whole
-            + stage0_frames * (1 + 2 * d[0])}
+            + stage0_frames * (1 + 2 * d[0] - 2 * fused_stage0),
+            "swin_window_norm_cuda": fused,
+            "swin_residual_norm_cuda": fused}
+
+
+def chain_share(got, want) -> float:
+    """A fused Swin block launch against its chain, held bit for bit, as a
+    share of that bar: 0 where every element's bits agree, else 1 plus
+    the elements that differ."""
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    apart = sum(bits_apart(g, w) for g, w in zip(got, want))
+    return float(apart + 1) if apart else 0.0
 
 
 @contextlib.contextmanager
