@@ -1,24 +1,13 @@
-"""The port's own spans and launch marks (``dhd_tpu_torch.profiling``) laid
-over a traced stretch: the arithmetic of the span metrics.
+"""The port's own spans (``dhd_tpu_torch.profiling``) laid over a traced
+stretch: the arithmetic of the span metrics.
 
 The program records, while a profiler runs, each span of its served frame
-(``forward`` and its stages) and a mark just before each launch of its
-own CUDA kernels, on the host clock (``time.time_ns``).  A traced run's
-two stretches are its last profiled frames: of the last ``ctx.items +
-ctx.detail.items`` ``forward`` spans the device-only stretch holds the
-first ``ctx.items``, the detail stretch the rest.
-
-A device trace's times are microseconds from the trace's start; its
-device clock drifts against the host's by up to milliseconds over a
-stretch (by two percent at worst, on the H100 it was measured on).  The
-port's own launches put the device's times on the program's clock
-(:func:`clock`): the k-th kernel of a name in the trace is the k-th
-launch marked under that name, so in each frame the least (device start
-- mark) is the offset there plus the least launch latency.  Every served
-frame launches B1.  A device time so put is the host's time at which a
-launch would have started the device then.  The host's syncs are
-counted in the detail stretch, against the ranges the program opens
-there, on the host's clock.
+(``forward`` and its stages) on the host clock (``time.time_ns``).  A
+traced run's two stretches are its last profiled frames: of the last
+``ctx.items + ctx.detail.items`` ``forward`` spans the device-only stretch
+holds the first ``ctx.items``, the detail stretch the rest.  The host's
+syncs are counted in the detail stretch, against the ranges the program
+opens there, on the host's clock.
 
 Kernel time inside a span is counted in the detail stretch, whose trace
 holds the host's ranges, the program's spans among them.  A device range
@@ -33,9 +22,14 @@ queues, and the trace's launch calls do not pair one to one with its
 kernels: some calls enqueue nothing.)
 
 Every reader returns None where there is nothing to read: a run off the
-card, a program without spans of its own, a stretch whose clock has no
-anchor (the reason goes to standard error), or device ranges that do not
+card, a program without spans of its own, or device ranges that do not
 pair with the host's.
+
+:func:`clock` and :func:`idle_ms` place the device-only stretch's idle
+gaps among the spans by the marks the program makes just before each
+launch of its own kernels.  A replayed CUDA graph makes no launch mark,
+so no metric reads them: they stay for the card tests of eagerly served
+frames in ``tests/test_torch_profiling.py``.
 """
 from __future__ import annotations
 
@@ -54,27 +48,25 @@ B3 = "cost_volume_kernel"
 Span = Tuple[str, int, float, float]        # name, depth, t0 and t1 in us
 
 
-def records() -> Optional[Tuple[List, List]]:
-    """The program's spans and launch marks, or None for a program that
-    records none."""
+def records() -> Optional[List]:
+    """The program's spans, or None for a program that records none."""
     try:
-        from dhd_tpu_torch.profiling import launch_marks, spans
+        from dhd_tpu_torch.profiling import spans
     except ImportError:
         return None
-    return spans(), launch_marks()
+    return spans()
 
 
-def stretch(ctx, detail: bool = False
-            ) -> Optional[Tuple[List[Span], List[Tuple[str, float]]]]:
-    """The spans and launch marks of the device-only stretch (or, with
-    ``detail``, of the detail stretch), times in us on the program's
-    clock."""
+def _bounds(ctx, detail: bool = False
+            ) -> Optional[Tuple[List, float, float]]:
+    """The program's spans, and the first and last ns of the device-only
+    stretch's ``forward`` spans (or, with ``detail``, the detail
+    stretch's)."""
     if ctx.loop.device.type != "cuda":
         return None
-    rec = records()
-    if rec is None:
+    spans = records()
+    if spans is None:
         return None
-    spans, marks = rec
     # the traced run's two stretches are its last profiled frames
     n_detail = ctx.detail.items
     n = n_detail if detail else ctx.items
@@ -84,10 +76,28 @@ def stretch(ctx, detail: bool = False
         forwards = forwards[ctx.items:]
     if n <= 0 or len(forwards) < n:
         return None
-    lo, hi = forwards[0][2], forwards[n - 1][3]
-    mine = [(name, depth, t0 / 1e3, t1 / 1e3)
+    return spans, forwards[0][2], forwards[n - 1][3]
+
+
+def launch_marks() -> List[Tuple[str, int]]:
+    """The program's launch marks, ``(kernel, t_ns)``; none for a program
+    that makes none."""
+    try:
+        from dhd_tpu_torch.profiling import launch_marks as marks
+    except ImportError:
+        return []
+    return marks()
+
+
+def stretch(ctx, detail: bool = False) -> Optional[List[Span]]:
+    """The spans of the device-only stretch (or, with ``detail``, of the
+    detail stretch), times in us on the program's clock."""
+    b = _bounds(ctx, detail)
+    if b is None:
+        return None
+    spans, lo, hi = b
+    return [(name, depth, t0 / 1e3, t1 / 1e3)
             for name, depth, t0, t1 in spans if lo <= t0 and t1 <= hi]
-    return mine, [(k, t / 1e3) for k, t in marks if lo <= t <= hi]
 
 
 class NoClock(Exception):
@@ -183,10 +193,11 @@ def idle_ms(ctx, names: Optional[Iterable[str]] = None,
     ``GAP_MIN_US`` or more whose midpoint, on the program's clock, lies
     inside a span of ``names`` (any span where None), or with
     ``outside`` inside no span at all."""
-    st = stretch(ctx)
-    if st is None:
+    b = _bounds(ctx)
+    if b is None:
         return None
-    spans, marks = st
+    spans = stretch(ctx)
+    marks = [(k, t / 1e3) for k, t in launch_marks() if b[1] <= t <= b[2]]
     try:
         to_program = clock(ctx.trace.kernels, marks, spans)
     except NoClock as e:
@@ -243,7 +254,7 @@ def _detail_ran(ctx, names: Iterable[str]) -> bool:
     """Whether the program recorded a span of ``names`` in the detail
     stretch."""
     st = stretch(ctx, detail=True)
-    return st is not None and any(name in set(names) for name, *_ in st[0])
+    return st is not None and any(name in set(names) for name, *_ in st)
 
 
 def kernel_ms(ctx, names: Iterable[str]) -> Optional[float]:
@@ -298,8 +309,8 @@ def setup_s(ctx, name: str) -> Optional[float]:
     """Seconds in the set-up spans named ``name``."""
     if ctx.loop.device.type != "cuda":
         return None
-    rec = records()
-    if rec is None:
+    spans = records()
+    if spans is None:
         return None
-    times = [(t1 - t0) / 1e9 for n, _, t0, t1 in rec[0] if n == name]
+    times = [(t1 - t0) / 1e9 for n, _, t0, t1 in spans if n == name]
     return sum(times) if times else None

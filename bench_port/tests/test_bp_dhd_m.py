@@ -144,7 +144,7 @@ def _ctx(device="cuda"):
 
 def test_the_head_splits_into_three_by_hand(monkeypatch):
     us = [(n, d, t0 * 1000, t1 * 1000) for n, d, t0, t1 in SPANS]
-    monkeypatch.setattr(spans, "records", lambda: (us, []))
+    monkeypatch.setattr(spans, "records", lambda: us)
     ctx = _ctx()
     parts = [_reader(n)(ctx) for n in PARTS]
     assert parts == pytest.approx([0.010, 0.015, 0.014])
@@ -159,7 +159,7 @@ def test_a_program_without_the_spans_reads_nothing(monkeypatch):
     """A program that records ``head`` but not its three parts: the
     readers return nothing, and do not raise."""
     older = [(n, d, t0 * 1000, t1 * 1000) for n, d, t0, t1 in SPANS[:3]]
-    monkeypatch.setattr(spans, "records", lambda: (older, []))
+    monkeypatch.setattr(spans, "records", lambda: older)
     ctx = _ctx()
     ctx.detail = FakeTrace(KERNELS, [h for h in HOST if h[2] not in (
         "bev_encoder", "voxel_encoders", "fuse")], 1, {

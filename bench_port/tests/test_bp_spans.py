@@ -1,10 +1,10 @@
 """The span metrics' readers (``bench_port/spans.py``) by hand, on fake
-trace, span and launch-mark records: a gap inside ``encode``, a gap
-outside every span, the trace's clock drifting, a stretch whose clock has
-no anchor, two syncs inside ``forward`` and one outside, the kernels
-launched inside a span from the device ranges opened inside it, the cost
-volume's plan, set-up seconds, and nothing to read off the card or from a
-program without spans."""
+trace, span and launch-mark records: two syncs inside ``forward`` and one
+outside, the kernels launched inside a span from the device ranges opened
+inside it, the cost volume's plan, set-up seconds, and nothing to read off
+the card or from a program without spans; and the launch marks' clock,
+which no metric reads: a gap inside ``encode``, a gap outside every span,
+the trace's clock drifting, a stretch whose clock has no anchor."""
 from __future__ import annotations
 
 import importlib.util
@@ -20,10 +20,8 @@ from bench_port.trace import Trace
 
 METRICS = H.ROOT / "bench_port" / "metrics"
 US = 1000                       # ns a microsecond
-NEW = ("forward_idle_ms.serve", "caller_idle_ms.serve",
-       "encode_idle_ms.serve", "syncs_per_frame.serve",
-       "bev_stage_ms.serve", "cv_plan_ms.serve", "init_weights_s",
-       "kernel_load_s")
+NEW = ("syncs_per_frame.serve", "bev_stage_ms.serve", "cv_plan_ms.serve",
+       "init_weights_s", "kernel_load_s")
 
 
 def reader(name):
@@ -107,7 +105,8 @@ def _ctx(device="cuda", detail_kernels=DETAIL_KERNELS):
 
 @pytest.fixture
 def recorded(monkeypatch):
-    monkeypatch.setattr(spans, "records", lambda: (SPANS, MARKS))
+    monkeypatch.setattr(spans, "records", lambda: SPANS)
+    monkeypatch.setattr(spans, "launch_marks", lambda: MARKS)
 
 
 def test_launch_marks_put_the_trace_on_the_programs_clock():
@@ -139,10 +138,6 @@ def test_launch_marks_put_the_trace_on_the_programs_clock():
 
 def test_span_readers_by_hand(recorded):
     ctx = _ctx()
-    assert reader("encode_idle_ms.serve")(ctx) == pytest.approx(0.010 / 2)
-    assert reader("forward_idle_ms.serve")(ctx) == \
-        pytest.approx((10 + 8 + 93) / 1e3 / 2)
-    assert reader("caller_idle_ms.serve")(ctx) == pytest.approx(0.088 / 2)
     assert reader("syncs_per_frame.serve")(ctx) == 2.0
     # pre_process 5 + 1, head 11 + 3 + 4 us; the plan 7 + 2 before B3
     assert reader("bev_stage_ms.serve")(ctx) == pytest.approx(0.024)
@@ -153,11 +148,16 @@ def test_span_readers_by_hand(recorded):
 
 def test_idle_splits_whole_between_forward_and_caller(recorded):
     ctx = _ctx()
+    assert spans.idle_ms(ctx, ("encode",)) == pytest.approx(0.010 / 2)
+    assert spans.idle_ms(ctx, ("forward",)) == \
+        pytest.approx((10 + 8 + 93) / 1e3 / 2)
+    assert spans.idle_ms(ctx, outside=True) == pytest.approx(0.088 / 2)
     busy = ctx.trace.busy_intervals()
     idle = sum(s1 - e0 for (_, e0), (s1, _) in zip(busy, busy[1:])
                if s1 - e0 >= 2.0) / 1e3 / ctx.items
-    assert reader("forward_idle_ms.serve")(ctx) \
-        + reader("caller_idle_ms.serve")(ctx) == pytest.approx(idle)
+    assert spans.idle_ms(ctx, ("forward",)) \
+        + spans.idle_ms(ctx, outside=True) == pytest.approx(idle)
+    assert spans.idle_ms(_ctx("cpu"), ("forward",)) is None
 
 
 def test_a_span_holds_the_device_ranges_opened_inside_it():
@@ -191,7 +191,7 @@ def test_a_stretch_without_an_anchor_says_why(recorded, capsys):
     ctx = _ctx()
     ctx.trace = FakeTrace([k for k in KERNELS if k[2] != "mghs_pool_kernel"],
                           HOST, 2)
-    assert reader("forward_idle_ms.serve")(ctx) is None
+    assert spans.idle_ms(ctx, ("forward",)) is None
     assert "no kernel of a marked name" in capsys.readouterr().err
 
 
@@ -205,6 +205,6 @@ def test_nothing_to_read_off_the_card_or_without_spans(name, recorded,
 
 def test_a_frame_without_the_span_reads_nothing(monkeypatch):
     no_plan = [s for s in SPANS if s[0] != "cost_volume"]
-    monkeypatch.setattr(spans, "records", lambda: (no_plan, MARKS))
+    monkeypatch.setattr(spans, "records", lambda: no_plan)
     assert reader("cv_plan_ms.serve")(_ctx()) is None
     assert reader("bev_stage_ms.serve")(_ctx()) == pytest.approx(0.024)
